@@ -1,0 +1,691 @@
+"""Structure-aware iteration engine (paper §3–§4, Algorithms 1–3); port of
+``repro.core.engine`` for PyTorch on a CUDA card.
+
+The engine executes one vertex program over a :class:`PartitionPlan`:
+
+  * hot-labelled blocks run **sequentially** within an iteration (the paper's
+    asynchronous mode — each block sees the freshest values), each for a
+    per-rank number of block-local Gauss-Seidel passes;
+  * cold-labelled blocks run **batched** from one snapshot (the paper's
+    synchronous mode);
+  * the scheduler picks the top-PSD m hot + n cold blocks per iteration
+    (Alg. 3) and the repartitioner re-labels blocks on a growing cadence
+    (Alg. 2);
+  * convergence is SUM_j PSD(j) < T2 (§4), with unvisited blocks carrying an
+    UNSEEN sentinel so the whole graph is covered at least once.
+
+Every block update goes through one hand-written CUDA kernel, the fused
+block sweep (:mod:`repro_torch.kernels.block_sweep`).
+
+Device-resident loop (``run()``, the default). The host enqueues the
+supersteps of a chunk — up to the next repartition boundary — without
+reading anything back: select, both sweeps, the staleness post and the
+convergence test read and write device tensors, and a device ``done`` flag
+turns every superstep after convergence (or after an empty schedule) into a
+no-op, so the trajectory is the reference's early exit. The iteration
+count, per-block schedule counts, hot-slot counts and the sub-block
+accounting live on the device and are read once per boundary, where the
+host repartitions (Alg. 2 is O(P) numpy bookkeeping). ``run(fused=False)``
+is the host-driven reference loop (one sync per iteration).
+
+The reference's buffer donation becomes in-place updates here: the sweeps
+write new block values, PSD and max-delta rows into the live tensors.
+
+Staleness coupling: when block j's vertices change, downstream blocks must
+become schedulable again even if their own PSD already decayed to 0. The
+block->block coupling matrix is built once on the host and applied after
+every superstep as a max-product matvec on the device.
+
+Adaptive active-set execution (``EngineConfig.adaptive``, default on), as in
+the reference: per-block ``calm`` counters retire blocks that stay under the
+pruning floor, hot slot i runs ``max(1, hot_inner_iters >> i)`` passes, and
+the dispatch width shrinks to the live active set at repartition
+boundaries.
+
+This slice ports the default configuration: ``subblocks=1``, fully
+resident, cold start, no tracing. The options of later slices raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import state as state_lib
+from repro_torch.core.algorithms import VertexProgram
+from repro_torch.core.graph import Graph, symmetrize
+from repro_torch.core.metrics import Metrics, Timer, block_io_bytes
+from repro_torch.core.partition import (TILE, PartitionPlan, TiledStorage,
+                                        build_plan)
+from repro_torch.core.repartition import RepartitionState
+from repro_torch.core.schedule import (Scheduler, Selection,
+                                       make_device_select, pick_width,
+                                       width_ladder)
+from repro_torch.kernels import block_sweep as kb
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    block_size: int = 256
+    width: int = 8  # W = m + n (paper: worker count)
+    i2: int = 4  # cold-admission cadence (paper I2)
+    cold_frac: float = 0.25  # n/W; paper requires m > n
+    repartition_interval: int = 4  # paper I1 (grows over time)
+    repartition_growth: float = 1.5
+    hot_inner_iters: int = 8  # async hot mode: block-local Gauss-Seidel
+    hot_ratio: float = 0.1
+    sample_frac: float = 0.1
+    alpha: float | None = None  # Eq. 1 alpha; None -> suggest_alpha
+    t2: float = 1e-6  # paper's default convergence threshold
+    max_iterations: int = 100000
+    stale_eps: float = 1e-12  # PSD above this marks downstream blocks dirty
+    fused: bool = True  # device-resident superstep loop
+    adaptive: bool = True  # active-set execution (False = fixed-slate)
+    subblocks: int = 1  # only 1 in this slice (sub-block slice)
+    retire_after: int = 3  # consecutive sub-floor supersteps before retire
+    min_width: int = 2  # narrowest dispatch-width bucket
+    resident_blocks: int | None = None  # only None (out-of-core slice)
+    seed: int = 0
+
+
+def check_config(config: EngineConfig) -> None:
+    """Reject the options whose port belongs to a later slice."""
+    if config.subblocks != 1:
+        raise NotImplementedError(
+            "subblocks > 1 comes with the sub-block (masked sweep) slice")
+    if config.resident_blocks is not None:
+        raise NotImplementedError(
+            "resident_blocks comes with the out-of-core slice")
+    if not 1 <= config.width <= kb.MAX_SLOTS:
+        raise ValueError(f"width must be 1..{kb.MAX_SLOTS}")
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU. A CUDA request without a card raises; nothing falls back."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain PyTorch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+@dataclasses.dataclass
+class RunResult:
+    values: np.ndarray  # indexed by ORIGINAL vertex id
+    metrics: Metrics
+    history: list  # per-iteration (or per-chunk) dicts
+    host_syncs: int = 0  # device->host reads of the loop state
+
+
+class EdgeData(NamedTuple):
+    """Device-resident edge state of the tiled layout, plus the per-vertex
+    slot ranges the sweep kernel's fold reads."""
+
+    src: torch.Tensor  # (n_tiles, TILE) int32
+    dstl: torch.Tensor  # (n_tiles, TILE) int32
+    w: torch.Tensor  # (n_tiles, TILE) float32
+    valid: torch.Tensor  # (n_tiles, TILE) bool
+    aux: torch.Tensor  # (n,) float32 per-vertex constant (e.g. out-degree)
+    tile_start: torch.Tensor  # (P,) int32
+    tile_cnt: torch.Tensor  # (P,) int32
+    vlo: torch.Tensor  # (values_len,) int32: first tile slot of v's edges
+    vhi: torch.Tensor  # (values_len,) int32: one past the last (== vlo: none)
+
+
+def tile_coverage(dst_local, valid, subblocks: int,
+                  block_size: int | None = None) -> np.ndarray:
+    """(n_tiles, S) bool: which of a block's S sub-ranges each tile's VALID
+    destinations land in (numpy copy of the reference's). At S = 1 it is
+    'tile has any valid slot'."""
+    d = np.asarray(dst_local)
+    v = np.asarray(valid, dtype=bool)
+    if subblocks <= 1:
+        return v.any(axis=1, keepdims=True)
+    sub = block_size // subblocks
+    cov = np.zeros((d.shape[0], subblocks), dtype=bool)
+    ii, jj = np.nonzero(v)
+    cov[ii, d[ii, jj] // sub] = True
+    return cov
+
+
+def vertex_slots(store: TiledStorage, block_size: int,
+                 values_len: int) -> tuple[np.ndarray, np.ndarray]:
+    """(vlo, vhi): the flat tile-slot range [vlo[v], vhi[v]) holding vertex
+    v's in-edges. Raises if the tiles are not in destination order with
+    each vertex's edges contiguous — the order the kernel's fold needs and
+    ``build_tiled_storage`` produces."""
+    if store.src.size >= 2 ** 31:
+        raise ValueError("tile slots must fit int32")
+    cnt = np.asarray(store.tile_cnt, dtype=np.int64)
+    if not np.array_equal(np.asarray(store.tile_start, dtype=np.int64),
+                          np.cumsum(cnt) - cnt):
+        raise ValueError("tile runs must be laid out in block order")
+    pos = np.flatnonzero(np.asarray(store.valid).reshape(-1))
+    block_of_tile = np.repeat(np.arange(store.num_blocks, dtype=np.int64),
+                              cnt)
+    tile = pos // TILE
+    dst = (block_of_tile[tile] * block_size
+           + np.asarray(store.dst_local).reshape(-1)[pos])
+    if np.any(np.diff(dst) < 0):
+        raise ValueError("tile slots must be in destination order")
+    verts = np.arange(values_len)
+    lo = np.searchsorted(dst, verts, side="left")
+    hi = np.searchsorted(dst, verts, side="right")
+    has = hi > lo
+    vlo = np.zeros(values_len, dtype=np.int64)
+    vhi = np.zeros(values_len, dtype=np.int64)
+    vlo[has] = pos[lo[has]]
+    vhi[has] = pos[hi[has] - 1] + 1
+    if not np.array_equal(vhi - vlo, hi - lo):
+        raise ValueError("each vertex's edge slots must be contiguous")
+    return vlo.astype(np.int32), vhi.astype(np.int32)
+
+
+def edge_data(store: TiledStorage, aux, block_size: int, values_len: int,
+              device: torch.device) -> EdgeData:
+    vlo, vhi = vertex_slots(store, block_size, values_len)
+
+    def dev(a, dtype):
+        a = np.asarray(a)
+        if not a.flags.writeable:  # torch shares memory only if writable
+            a = a.copy()
+        return torch.as_tensor(a).to(device=device, dtype=dtype)
+
+    return EdgeData(src=dev(store.src, torch.int32),
+                    dstl=dev(store.dst_local, torch.int32),
+                    w=dev(store.w, torch.float32),
+                    valid=dev(store.valid, torch.bool),
+                    aux=dev(aux, torch.float32),
+                    tile_start=dev(store.tile_start, torch.int32),
+                    tile_cnt=dev(store.tile_cnt, torch.int32),
+                    vlo=dev(vlo, torch.int32), vhi=dev(vhi, torch.int32))
+
+
+# -- adaptive-schedule decision helpers (copies of the reference's) ----------
+def inner_depths(cfg: EngineConfig, width: int) -> np.ndarray:
+    """Per-slot Gauss-Seidel depth for the hot sweep, by PSD rank: slot 0
+    runs the full ``hot_inner_iters``, halving per rank down to 1. Dense
+    mode keeps the constant depth."""
+    t = max(cfg.hot_inner_iters, 1)
+    if not cfg.adaptive:
+        return np.full(width, t, dtype=np.int32)
+    return np.maximum(1, t >> np.minimum(np.arange(width), 30)) \
+        .astype(np.int32)
+
+
+def dispatch_width(cfg: EngineConfig, ladder: list[int], active: int,
+                   psd_host: np.ndarray) -> int:
+    """Dispatch bucket for the live active-set size, chosen by the host at
+    repartition boundaries; 2x headroom while an UNSEEN wave is in flight."""
+    if not cfg.adaptive:
+        return cfg.width
+    if bool((psd_host >= state_lib.UNSEEN).any()):
+        active *= 2
+    return pick_width(ladder, active)
+
+
+def acct_table(plan: PartitionPlan, edge_counts: np.ndarray) -> np.ndarray:
+    """(P, 4) host-side accounting row per schedule of a block: [vertices
+    updated, edges processed, 1 load, bytes loaded]."""
+    acct = np.zeros((plan.num_blocks, 4), dtype=np.int64)
+    for b in range(plan.num_blocks):
+        lo, hi = plan.block_range(b)
+        e = int(edge_counts[b])
+        acct[b] = (hi - lo, e, 1, block_io_bytes(e, plan.block_size))
+    return acct
+
+
+def make_tiled_processor(program: VertexProgram, ed: EdgeData,
+                         block_size: int, n_live: int, n_total: int):
+    """Block processor over the unified tiled layout, through the sweep
+    kernel. Unlike the reference's functional per-block processors, both
+    update in place and take a whole slate (``rows``/``ok``, (W,)):
+
+    * ``process_one(ed, values, psd, dmax, rows, ok, out=None)`` — one pass
+      over every ok slot from one snapshot of ``values`` (the cold sweep,
+      and the baseline's full sweep);
+    * ``process_iterated(ed, values, psd, dmax, rows, ok, t_inner)`` —
+      ``t_inner`` block-local Gauss-Seidel passes of a one-slot slate (the
+      hot sweep), each pass reading the previous one's writes.
+
+    Both write the block's new values, and its (mean, max) delta at
+    ``psd[row]``/``dmax[row]``; slots that are not ok write nothing."""
+    scratch = kb.make_scratch(ed, block_size)
+    kw = dict(block_size=block_size, n_live=n_live)
+
+    def process_one(ed, values, psd, dmax, rows, ok, out=None):
+        kb.block_sweep(program, n_total, ed, values, rows, ok, psd, dmax,
+                       scratch, out=out, **kw)
+
+    def process_iterated(ed, values, psd, dmax, rows, ok, t_inner):
+        for p in range(t_inner):
+            kb.block_sweep(program, n_total, ed, values, rows, ok, psd,
+                           dmax, scratch, first=p == 0,
+                           last=p == t_inner - 1, **kw)
+
+    return process_one, process_iterated
+
+
+def coupling_from_counts(block_edge_counts: np.ndarray,
+                         program: VertexProgram,
+                         block_size: int) -> np.ndarray:
+    """(P, P) staleness-coupling matrix from the block->block edge-count
+    matrix W_jb (number of edges from block j's vertices into block b)."""
+    w = block_edge_counts
+    if program.combine == "sum":
+        k = (np.minimum(w, block_size) / block_size).astype(np.float32)
+        return k * np.float32(program.damping)
+    return (w > 0).astype(np.float32)
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded to f32: the value the reference's weak-typed
+    scalar takes in f32 arithmetic."""
+    return float(np.float32(x))
+
+
+class StructureAwareEngine:
+    """Paper pipeline: build plan -> iterate (schedule, process, repartition)."""
+
+    def __init__(self, graph: Graph, program: VertexProgram,
+                 config: EngineConfig = EngineConfig(), device="cuda"):
+        check_config(config)
+        dev = resolve_device(device)
+        g = symmetrize(graph) if program.needs_symmetric else graph
+        plan = build_plan(
+            g, block_size=config.block_size, alpha=config.alpha,
+            sample_frac=config.sample_frac, hot_ratio=config.hot_ratio,
+            seed=config.seed)
+        vals0, aux0 = program.init(g)  # original ids ...
+        values0 = _init_dead(program, plan, vals0[plan.order])  # ... permuted
+        # pad so every block's (base, block_size) slice is in bounds
+        values_len = max(plan.num_blocks * plan.block_size, plan.graph.n)
+        values0 = np.concatenate(
+            [values0, np.zeros(values_len - values0.size, np.float32)])
+        counts = block_coupling_counts(plan)
+        self._setup(plan, program, config, dev, values0, aux0[plan.order],
+                    coupling_from_counts(counts, program, plan.block_size),
+                    plan.barrier_block)
+
+    @classmethod
+    def from_plan(cls, plan: PartitionPlan, program: VertexProgram,
+                  config: EngineConfig, values0: np.ndarray, aux: np.ndarray,
+                  coupling: np.ndarray, barrier_block: int,
+                  device="cuda") -> "StructureAwareEngine":
+        """An engine over given state (see :mod:`repro_torch.interop`):
+        ``values0`` permuted, dead-initialised and padded; ``aux`` permuted;
+        the (P, P) coupling matrix; the born hot prefix."""
+        check_config(config)
+        self = cls.__new__(cls)
+        self._setup(plan, program, config, resolve_device(device),
+                    np.asarray(values0, np.float32),
+                    np.asarray(aux, np.float32),
+                    np.asarray(coupling, np.float32), int(barrier_block))
+        return self
+
+    def _setup(self, plan, program, config, device, values0, aux, coupling,
+               barrier_block):
+        self.plan, self.program, self.config = plan, program, config
+        self.device = device
+        self.values0 = values0
+        self._values_len = values0.size
+        self.barrier_block = barrier_block
+        self.edge_counts = np.array(plan.unified.edges, dtype=np.int64)
+        self._ed = edge_data(plan.unified, aux, plan.block_size,
+                             self._values_len, device)
+        self._coupling_dev = torch.as_tensor(coupling).to(device)
+        self._proc = make_tiled_processor(program, self._ed,
+                                          plan.block_size, plan.n_live,
+                                          plan.graph.n)
+        self._sweep_fns: dict = {}
+        self._ladder = (width_ladder(config.width, config.min_width)
+                        if config.adaptive else [config.width])
+        # pad block for dispatch slots beyond the take counts (never ok)
+        tile_cnt = plan.unified.tile_cnt
+        self.pad_id = int(np.argmin(tile_cnt)) if tile_cnt.size else 0
+
+    # -- schedule helpers ----------------------------------------------------
+    def _psd_floor(self) -> float:
+        """Per-block pruning floor (t2/P), shared by the scheduler's live
+        test and the calm/retire counters."""
+        return self.config.t2 / max(self.plan.num_blocks, 1)
+
+    def _post(self, coupling, psd, dmax, calm):
+        """Consume dmax: re-arm downstream blocks through the coupling
+        (max-product matvec), then reset it; advance the calm counters."""
+        eps, floor = _f32(self.config.stale_eps), _f32(self._psd_floor())
+        d = torch.where(dmax > eps, dmax, 0.0)
+        dblk = d.amax(dim=1)
+        bump = (dblk[:, None] * coupling).amax(dim=0)[:, None]
+        psd = torch.maximum(psd, torch.clamp(bump, max=_f32(1e29)))
+        calm = torch.where(psd < floor, calm + 1, 0).to(torch.int32)
+        return psd, torch.zeros_like(dmax), calm
+
+    def _inner_depths(self, width: int) -> np.ndarray:
+        return inner_depths(self.config, width)
+
+    def _pick_width(self, active: int, psd_host: np.ndarray) -> int:
+        return dispatch_width(self.config, self._ladder, active, psd_host)
+
+    def _active_count(self, calm_host: np.ndarray) -> int:
+        if not self.config.adaptive:
+            return self.plan.num_blocks
+        live = np.asarray(calm_host) < self.config.retire_after
+        if live.ndim == 2:
+            live = live.any(axis=-1)
+        return int(live.sum())
+
+    def _subblocks_retired(self, calm_host: np.ndarray) -> int:
+        if not self.config.adaptive:
+            return 0
+        return int((np.asarray(calm_host) >=
+                    self.config.retire_after).sum())
+
+    def _acct_table(self) -> np.ndarray:
+        return acct_table(self.plan, self.edge_counts)
+
+    # -- sweeps --------------------------------------------------------------
+    def _sweeps(self, width: int):
+        """(hot_sweep, cold_sweep) over a (width,) slate, both in place on
+        (values, psd, dmax). Hot slots run one after another, slot i with
+        its rank's inner depth, so slot i+1 sees slot i's writes; the cold
+        slate is one launch pair reading one snapshot."""
+        if width in self._sweep_fns:
+            return self._sweep_fns[width]
+        depths = self._inner_depths(width).tolist()
+        process_one, process_iterated = self._proc
+
+        def hot_sweep(ed, values, psd, dmax, rows, ok):
+            for i in range(width):
+                process_iterated(ed, values, psd, dmax, rows[i:i + 1],
+                                 ok[i:i + 1], depths[i])
+
+        def cold_sweep(ed, values, psd, dmax, rows, ok):
+            process_one(ed, values, psd, dmax, rows, ok)
+
+        self._sweep_fns[width] = (hot_sweep, cold_sweep)
+        return hot_sweep, cold_sweep
+
+    def _account(self, metrics: Metrics, ids: np.ndarray):
+        p = self.plan
+        for b in ids:
+            lo, hi = p.block_range(int(b))
+            e = int(self.edge_counts[int(b)])
+            metrics.updates += hi - lo
+            metrics.block_loads += 1
+            metrics.bytes_loaded += block_io_bytes(e, p.block_size)
+            metrics.edges_processed += e
+
+    # -- main loop ----------------------------------------------------------
+    def run(self, max_iterations: int | None = None,
+            fused: bool | None = None, warm=None,
+            trace: bool | None = None) -> RunResult:
+        """Run to convergence from the cold start. ``fused`` overrides
+        ``config.fused``: True = device-resident chunked loop (host reads
+        only at repartition boundaries), False = host-driven reference loop
+        (one read per iteration)."""
+        if warm is not None:
+            raise NotImplementedError(
+                "warm starts come with the streaming slice")
+        if trace:
+            raise NotImplementedError(
+                "trace=True comes with the tracing slice")
+        fused = self.config.fused if fused is None else fused
+        return (self._run_fused(max_iterations) if fused
+                else self._run_host(max_iterations))
+
+    def _start_state(self):
+        cfg, p = self.config, self.plan
+        dev = self.device
+        mode = "barrier" if self.program.monotone_cooling else "universal"
+        rep = RepartitionState.create(
+            p.num_blocks, self.barrier_block, mode,
+            interval=cfg.repartition_interval,
+            growth=cfg.repartition_growth)
+        psd0 = state_lib.init_psd(p.num_blocks, cfg.subblocks)
+        calm0 = np.zeros((p.num_blocks, cfg.subblocks), dtype=np.int32)
+        return (torch.as_tensor(self.values0).to(dev).clone(),
+                torch.as_tensor(psd0).to(dev).clone(), psd0, rep, calm0)
+
+    def _run_fused(self, max_iterations: int | None = None) -> RunResult:
+        cfg, p, dev = self.config, self.plan, self.device
+        max_it = max_iterations or cfg.max_iterations
+        values, psd, psd_sub_host, rep, calm_host = self._start_state()
+        i2 = cfg.i2
+        t2 = cfg.t2
+        floor = _f32(self._psd_floor())
+        calm = torch.as_tensor(calm_host).to(dev)
+        psd_host = state_lib.fold_subblock_psd(psd_sub_host)
+        active = self._active_count(calm_host)
+        dmax = torch.zeros((p.num_blocks, cfg.subblocks), dtype=torch.float32,
+                           device=dev)
+        coupling = self._coupling_dev
+        ed = self._ed
+        acct = self._acct_table()
+        metrics = Metrics()
+        history = []
+        depth_hist: dict[int, int] = {}
+        width_iters = 0
+        sb_total = 0
+        syncs = 0
+        wb = self._pick_width(active, psd_host)
+
+        with Timer() as t:
+            it = 0
+            while it < max_it:
+                it_end = rep.chunk_end(max_it)
+                select = make_device_select(
+                    width=wb, cold_frac=cfg.cold_frac,
+                    min_psd=self._psd_floor(), pad_id=self.pad_id)
+                hot_sweep, cold_sweep = self._sweeps(wb)
+                is_hot = torch.as_tensor(rep.is_hot).to(dev)
+                # chunk-local device counters, read at the boundary
+                it_dev = torch.tensor(it, dtype=torch.int64, device=dev)
+                done = torch.zeros((), dtype=torch.bool, device=dev)
+                counts = torch.zeros(p.num_blocks, dtype=torch.int32,
+                                     device=dev)
+                hslots = torch.zeros(wb, dtype=torch.int32, device=dev)
+                sbacc = torch.zeros((), dtype=torch.int64, device=dev)
+                for k in range(it, it_end):
+                    # while not done, the device iteration count is k
+                    hot_rows, hot_ok, cold_rows, cold_ok = select(
+                        k, i2, psd, is_hot)
+                    running = ~done
+                    hot_ok = hot_ok & running
+                    cold_ok = cold_ok & running
+                    live = (psd >= floor).sum(dim=-1)
+                    sbacc += (live[hot_rows.long()] * hot_ok).sum() \
+                        + (live[cold_rows.long()] * cold_ok).sum()
+                    hot_sweep(ed, values, psd, dmax, hot_rows, hot_ok)
+                    cold_sweep(ed, values, psd, dmax, cold_rows, cold_ok)
+                    counts.index_add_(0, hot_rows.long(),
+                                      hot_ok.to(torch.int32))
+                    counts.index_add_(0, cold_rows.long(),
+                                      cold_ok.to(torch.int32))
+                    hslots += hot_ok.to(torch.int32)
+                    # staleness propagation + calm/retire counter advance
+                    psd2, dmax2, calm2 = self._post(coupling, psd, dmax,
+                                                    calm)
+                    psd = torch.where(done, psd, psd2)
+                    dmax = torch.where(done, dmax, dmax2)
+                    calm = torch.where(done, calm, calm2)
+                    scheduled = hot_ok.any() | cold_ok.any()
+                    it_dev += scheduled.to(torch.int64)
+                    done = done | state_lib.converged_device(psd, t2) \
+                        | ~scheduled
+                # the chunk's single host read
+                it_new = int(it_dev)
+                psd_sub_host = psd.cpu().numpy()
+                psd_host = state_lib.fold_subblock_psd(psd_sub_host)
+                calm_host = calm.cpu().numpy()
+                counts_host = counts.cpu().numpy().astype(np.int64)
+                hslots_host = hslots.cpu().numpy()
+                sb_total += int(sbacc)
+                conv = bool(state_lib.converged_device(psd, t2))
+                syncs += 1
+                delta = counts_host @ acct
+                metrics.absorb_counters(delta)
+                span = it_new - it
+                width_iters += wb * span
+                for d, cnt in zip(self._inner_depths(wb).tolist(),
+                                  hslots_host.tolist()):
+                    if cnt:
+                        depth_hist[int(d)] = depth_hist.get(int(d), 0) + \
+                            int(cnt)
+                history.append({
+                    "iteration": max(it_new - 1, 0),
+                    "span": span,
+                    "psd_sum": float(psd_host[psd_host <
+                                              state_lib.UNSEEN].sum()),
+                    "unseen": int((psd_host >= state_lib.UNSEEN).sum()),
+                    "hot_blocks": int(rep.is_hot.sum()),
+                    "scheduled": int(delta[2]),
+                    "width": wb,
+                    "retired": p.num_blocks - self._active_count(calm_host),
+                })
+                if conv:
+                    metrics.converged = True
+                    it = it_new
+                    break
+                if it_new == it:  # schedule went empty: nothing left to do
+                    break
+                it = it_new
+                rep.maybe_repartition(it - 1, psd_host, cfg.hot_ratio)
+                wb = self._pick_width(self._active_count(calm_host),
+                                      psd_host)
+        return self._finish(metrics, t.elapsed, it, width_iters, calm_host,
+                            depth_hist, sb_total, values, history, syncs)
+
+    def _finish(self, metrics, elapsed, it, width_iters, calm_host,
+                depth_hist, sb_total, values, history, syncs) -> RunResult:
+        p = self.plan
+        metrics.iterations = it
+        metrics.wall_time_s = elapsed
+        metrics.mean_dispatch_width = width_iters / max(it, 1)
+        metrics.blocks_retired = p.num_blocks - self._active_count(calm_host)
+        metrics.inner_depth_hist = depth_hist
+        metrics.subblocks_retired = self._subblocks_retired(calm_host)
+        metrics.mean_subblock_dispatch = sb_total / \
+            max(metrics.block_loads, 1)
+        out = values.cpu().numpy()[p.inv]  # back to original ids
+        return RunResult(values=out, metrics=metrics, history=history,
+                         host_syncs=syncs + 1)
+
+    def _dispatch(self, values, psd, dmax, block_ids: np.ndarray,
+                  sequential: bool, width: int):
+        """Run the selected blocks through the sweeps, padded to the given
+        dispatch bucket. Slot index == PSD rank, which is what the hot
+        sweep's depth ladder keys on."""
+        hot_sweep, cold_sweep = self._sweeps(width)
+        sweep = hot_sweep if sequential else cold_sweep
+        for at in range(0, block_ids.size, width):
+            chunk = block_ids[at:at + width]
+            rows = np.zeros(width, dtype=np.int32)
+            ok = np.zeros(width, dtype=bool)
+            rows[:chunk.size] = chunk.astype(np.int32)
+            ok[:chunk.size] = True
+            sweep(self._ed, values, psd, dmax,
+                  torch.as_tensor(rows).to(self.device),
+                  torch.as_tensor(ok).to(self.device))
+
+    def _run_host(self, max_iterations: int | None = None) -> RunResult:
+        cfg, p = self.config, self.plan
+        max_it = max_iterations or cfg.max_iterations
+        values, psd, psd_sub, rep, calm_host = self._start_state()
+        psd_host = state_lib.fold_subblock_psd(psd_sub)
+        sched = Scheduler(width=self._pick_width(
+                              self._active_count(calm_host), psd_host),
+                          i2=cfg.i2, cold_frac=cfg.cold_frac,
+                          min_psd=self._psd_floor())
+        calm = torch.as_tensor(calm_host).to(self.device)
+        dmax = torch.zeros((p.num_blocks, cfg.subblocks), dtype=torch.float32,
+                           device=self.device)
+        floor = self._psd_floor()
+        metrics = Metrics()
+        history = []
+        depth_hist: dict[int, int] = {}
+        hslots = np.zeros(cfg.width, dtype=np.int64)
+        width_iters = 0
+        sb_total = 0
+        syncs = 0
+
+        with Timer() as t:
+            it = 0
+            while it < max_it:
+                sel: Selection = sched.select(it, psd_sub, rep.is_hot)
+                if sel.hot_ids.size == 0 and sel.cold_ids.size == 0:
+                    break
+                processed = np.concatenate([sel.hot_ids, sel.cold_ids])
+                sb_total += int((psd_sub[processed] >= floor).sum())
+                self._dispatch(values, psd, dmax, sel.hot_ids,
+                               sequential=True, width=sched.width)
+                self._dispatch(values, psd, dmax, sel.cold_ids,
+                               sequential=False, width=sched.width)
+                self._account(metrics, processed)
+                hslots[:sel.hot_ids.size] += 1
+                width_iters += sched.width
+                psd, dmax, calm = self._post(self._coupling_dev, psd, dmax,
+                                             calm)
+                psd_sub = psd.cpu().numpy()
+                psd_host = state_lib.fold_subblock_psd(psd_sub)
+                syncs += 1
+                fired = rep.maybe_repartition(it, psd_host, cfg.hot_ratio)
+                if fired and cfg.adaptive:
+                    calm_host = calm.cpu().numpy()
+                    sched.width = self._pick_width(
+                        self._active_count(calm_host), psd_host)
+                history.append({
+                    "iteration": it,
+                    "psd_sum": float(psd_host[psd_host <
+                                              state_lib.UNSEEN].sum()),
+                    "unseen": int((psd_host >= state_lib.UNSEEN).sum()),
+                    "hot_blocks": int(rep.is_hot.sum()),
+                    "scheduled": int(processed.size),
+                    "width": sched.width,
+                })
+                it += 1
+                if state_lib.converged(psd_sub, cfg.t2):
+                    metrics.converged = True
+                    break
+        calm_host = calm.cpu().numpy()
+        for d, cnt in zip(self._inner_depths(cfg.width).tolist(),
+                          hslots.tolist()):
+            if cnt:
+                depth_hist[int(d)] = depth_hist.get(int(d), 0) + int(cnt)
+        return self._finish(metrics, t.elapsed, it, width_iters, calm_host,
+                            depth_hist, sb_total, values, history, syncs)
+
+
+def _init_dead(program: VertexProgram, plan: PartitionPlan,
+               values_perm: np.ndarray) -> np.ndarray:
+    """Dead partition: processed once at start (§3.2) — apply() with the
+    identity aggregate, after which these vertices are final."""
+    values = np.array(values_perm, dtype=np.float32)
+    if plan.n_dead == 0:
+        return values
+    dead = slice(plan.n_live, plan.graph.n)
+    old = torch.from_numpy(values[dead])
+    agg = torch.full((plan.n_dead,), 0.0 if program.combine == "sum"
+                     else float(program.identity))
+    values[dead] = program.apply(old, agg, plan.graph.n).numpy()
+    return values
+
+
+def block_coupling_counts(plan: PartitionPlan) -> np.ndarray:
+    """(P, P) block->block edge counts W_jb over the permuted graph's
+    out-edges (the dead tail dropped)."""
+    g, c = plan.graph, plan.block_size
+    w = np.zeros((plan.num_blocks, plan.num_blocks), dtype=np.int64)
+    for j in range(plan.num_blocks):
+        lo, hi = plan.block_range(j)
+        dsts = g.out_dst[g.out_indptr[lo]:g.out_indptr[hi]]
+        blocks, counts = np.unique(dsts // c, return_counts=True)
+        keep = blocks < plan.num_blocks
+        w[j, blocks[keep]] = counts[keep]
+    return w

@@ -1,0 +1,71 @@
+"""State carried across from the reference engine.
+
+:func:`engine_from_arrays` builds the port's :class:`StructureAwareEngine`
+from a reference engine's arrays, handed over as numpy — the vertex
+permutation, the unified tile arrays, the initial values and aux, the
+coupling matrix and the born hot labels — bypassing the port's own
+``build_plan``. A test can then hold a sweep or a superstep against the
+reference on identical state even if planning ever diverged: the arrays
+play the role that weights play in a model port.
+
+The arrays (all numpy, reference names):
+
+    order, inv            plan.order / plan.inv
+    n_live                plan.n_live
+    src, dst_local, w,    plan.unified tile arrays, (n_tiles, TILE)
+    valid
+    tile_start, tile_cnt, plan.unified per-block arrays, (P,)
+    edges
+    values0               engine.values0 (permuted, dead-initialised, padded)
+    aux                   engine.aux (permuted)
+    coupling              engine._coupling, (P, P)
+    is_hot                the born hot labels, a prefix of the blocks (P,)
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.algorithms import VertexProgram
+from repro_torch.core.engine import EngineConfig, StructureAwareEngine
+from repro_torch.core.graph import from_edges
+from repro_torch.core.partition import PartitionPlan, TiledStorage
+
+ARRAYS = ("order", "inv", "n_live", "src", "dst_local", "w", "valid",
+          "tile_start", "tile_cnt", "edges", "values0", "aux", "coupling",
+          "is_hot")
+
+
+def engine_from_arrays(program: VertexProgram, config: EngineConfig,
+                       arrays: dict, device="cuda") -> StructureAwareEngine:
+    missing = [k for k in ARRAYS if k not in arrays]
+    if missing:
+        raise KeyError(f"missing arrays: {missing}")
+    a = {k: np.asarray(arrays[k]) for k in ARRAYS}
+    c = config.block_size
+    store = TiledStorage(src=a["src"].astype(np.int32),
+                         dst_local=a["dst_local"].astype(np.int32),
+                         w=a["w"].astype(np.float32),
+                         valid=a["valid"].astype(bool),
+                         tile_start=a["tile_start"].astype(np.int32),
+                         tile_cnt=a["tile_cnt"].astype(np.int32),
+                         edges=a["edges"].astype(np.int64))
+    is_hot = a["is_hot"].astype(bool)
+    barrier = int(is_hot.sum())
+    if not is_hot[:barrier].all():
+        raise ValueError("is_hot must be a prefix of the blocks")
+    # the permuted graph, read back from the tiles (CSC order is kept)
+    n = int(a["order"].size)
+    block_of_tile = np.repeat(np.arange(store.num_blocks), store.tile_cnt)
+    tt, jj = np.nonzero(store.valid)
+    g = from_edges(n, store.src[tt, jj],
+                   block_of_tile[tt] * c + store.dst_local[tt, jj],
+                   store.w[tt, jj])
+    n_live = int(a["n_live"])
+    plan = PartitionPlan(graph=g, inv=a["inv"].astype(np.int64),
+                         order=a["order"].astype(np.int64), block_size=c,
+                         num_blocks=store.num_blocks, n_live=n_live,
+                         n_dead=n - n_live, barrier_block=barrier,
+                         unified=store, ad=np.zeros(n), t1=0.0, alpha=0.0)
+    return StructureAwareEngine.from_plan(
+        plan, program, config, a["values0"], a["aux"], a["coupling"],
+        barrier, device=device)

@@ -69,6 +69,11 @@ def cc_oracle(g):
     return np.array([find(i) for i in range(g.n)])
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc (skips without)")
+
+
 @pytest.fixture(scope="session")
 def powerlaw_small():
     return G.powerlaw_graph(2000, avg_deg=6, seed=1)

@@ -1,0 +1,139 @@
+"""Whole runs of the port (on the CPU, through the plain sweep) against the
+reference engines, for all four programs.
+
+The port runs on the reference's state handed over through
+``repro_torch.interop`` and on its own plan, both through the
+device-resident loop (``run()``) and the host loop (``run(fused=False)``).
+The bar:
+
+* SSSP/BFS/CC fixpoints: bitwise.
+* PageRank: rtol=1e-4, atol=1e-7 (the quickstart's tolerance).
+* BFS counters (iterations, updates, loads, bytes): identical. Its deltas
+  are integers, so every PSD sum is exact in any order and the schedule
+  cannot drift.
+* SSSP and PageRank counters: the PSD is an order-dependent float sum, and
+  PageRank's values differ from the reference's by reordering roundoff, so
+  a select decision can flip. The test prints the counters side by side
+  and asserts what holds on these inputs: SSSP's are identical; PageRank's
+  are not (its trajectory forks; see ROADMAP.md, Queue 3), so for
+  PageRank only convergence and the values are asserted.
+* The port's device-resident loop and host loop agree bitwise with each
+  other on values and counters (same sweeps, same decisions).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+from _torch_parity import one_torch_thread, port_engine  # noqa: F401
+
+from repro.core import algorithms as JA
+from repro.core import graph as JG
+from repro.core.baseline import BaselineEngine as JBaseline
+from repro.core.engine import EngineConfig as JConfig
+from repro.core.engine import StructureAwareEngine as JEngine
+from repro_torch.core import algorithms as TA
+from repro_torch.core import graph as TG
+from repro_torch.core.baseline import BaselineEngine as TBaseline
+from repro_torch.core.engine import EngineConfig as TConfig
+from repro_torch.core.engine import StructureAwareEngine as TEngine
+
+KW = dict(t2=1e-9, width=4, block_size=64)
+COUNTERS = ("iterations", "updates", "edges_processed", "block_loads",
+            "bytes_loaded", "converged")
+GRAPHS = {
+    "pagerank": ("core_periphery_graph", dict(n=1500, avg_deg=6, seed=4,
+                                              chords=1)),
+    "sssp": ("powerlaw_graph", dict(n=1200, avg_deg=5, seed=4,
+                                    weighted=True)),
+    "bfs": ("powerlaw_graph", dict(n=1200, avg_deg=5, seed=5)),
+    "cc": ("powerlaw_graph", dict(n=900, avg_deg=3, seed=6)),
+}
+
+
+def _graphs(prog):
+    fn, kw = GRAPHS[prog]
+    return getattr(JG, fn)(**kw), getattr(TG, fn)(**kw)
+
+
+def _counters(m):
+    return tuple(getattr(m, f) for f in COUNTERS)
+
+
+def _check(prog, ref, got, label):
+    if prog == "pagerank":
+        np.testing.assert_allclose(got.values, ref.values, rtol=1e-4,
+                                   atol=1e-7, err_msg=label)
+    else:
+        assert np.array_equal(got.values, ref.values), label
+    rc, gc = _counters(ref.metrics), _counters(got.metrics)
+    print(f"{label}: reference {rc} port {gc}")
+    assert got.metrics.converged and ref.metrics.converged
+    if prog != "pagerank":
+        assert gc == rc, label
+
+
+@pytest.mark.parametrize("prog", ["pagerank", "sssp", "bfs", "cc"])
+def test_engine_matches_reference(prog):
+    jg, tg = _graphs(prog)
+    jeng = JEngine(jg, JA.REGISTRY[prog](), JConfig(**KW))
+    ref = jeng.run()
+    via_arrays = port_engine(jeng, TA.REGISTRY[prog](), TConfig(**KW))
+    own = TEngine(tg, TA.REGISTRY[prog](), TConfig(**KW), device="cpu")
+    fused = via_arrays.run()
+    _check(prog, ref, fused, f"{prog} interop fused")
+    _check(prog, ref, own.run(), f"{prog} own plan fused")
+    host = via_arrays.run(fused=False)
+    _check(prog, ref, host, f"{prog} interop host")
+    assert np.array_equal(host.values, fused.values)
+    assert _counters(host.metrics) == _counters(fused.metrics)
+    # the device-resident loop reads the device once per boundary
+    assert fused.host_syncs < fused.metrics.iterations
+    assert host.host_syncs > host.metrics.iterations
+
+
+@pytest.mark.parametrize("prog", ["pagerank", "sssp", "bfs", "cc"])
+def test_baseline_matches_reference(prog):
+    jg, tg = _graphs(prog)
+    ref = JBaseline(jg, JA.REGISTRY[prog](), JConfig(**KW)).run()
+    got = TBaseline(tg, TA.REGISTRY[prog](), TConfig(**KW),
+                    device="cpu").run()
+    _check(prog, ref, got, f"{prog} baseline")
+    if prog != "pagerank":
+        assert [h["active"] for h in got.history] == \
+            [h["active"] for h in ref.history]
+
+
+def test_non_adaptive_engine_matches_reference():
+    jg, tg = _graphs("sssp")
+    cfg = dict(KW, adaptive=False)
+    jeng = JEngine(jg, JA.sssp(), JConfig(**cfg))
+    _check("sssp", jeng.run(),
+           port_engine(jeng, TA.sssp(), TConfig(**cfg)).run(),
+           "sssp fixed-slate")
+
+
+def test_later_slices_raise():
+    tg = TG.powerlaw_graph(300, 3, seed=0)
+    with pytest.raises(NotImplementedError, match="sub-block"):
+        TEngine(tg, TA.sssp(), TConfig(block_size=64, subblocks=4),
+                device="cpu")
+    with pytest.raises(NotImplementedError, match="out-of-core"):
+        TEngine(tg, TA.sssp(), TConfig(block_size=64, resident_blocks=3),
+                device="cpu")
+    eng = TEngine(tg, TA.sssp(), TConfig(block_size=64), device="cpu")
+    with pytest.raises(NotImplementedError, match="streaming"):
+        eng.run(warm=object())
+    with pytest.raises(NotImplementedError, match="tracing"):
+        eng.run(trace=True)
+    assert "use_pallas" not in {f.name for f in
+                                dataclasses.fields(TConfig)}
+
+
+def test_max_iterations_caps_the_device_loop():
+    jg, tg = _graphs("sssp")
+    jeng = JEngine(jg, JA.sssp(), JConfig(**KW))
+    ref = jeng.run(max_iterations=7)
+    got = port_engine(jeng, TA.sssp(), TConfig(**KW)).run(max_iterations=7)
+    assert got.metrics.iterations == ref.metrics.iterations == 7
+    assert np.array_equal(got.values, ref.values)
+    assert _counters(got.metrics) == _counters(ref.metrics)
