@@ -52,7 +52,7 @@ class BaselineEngine:
         self.values0 = np.concatenate(
             [vals0, np.zeros(self._values_len - g.n, dtype=vals0.dtype)])
         self._ed = edge_data(self.store, aux0, c, self._values_len,
-                             self.device)
+                             subblocks=1, device=self.device)
         self._process_one, _ = make_tiled_processor(program, self._ed, c,
                                                     g.n, g.n)
 

@@ -15,7 +15,8 @@ The engine executes one vertex program over a :class:`PartitionPlan`:
     UNSEEN sentinel so the whole graph is covered at least once.
 
 Every block update goes through one hand-written CUDA kernel, the fused
-block sweep (:mod:`repro_torch.kernels.block_sweep`).
+block sweep (:mod:`repro_torch.kernels.block_sweep`): its unmasked form at
+``subblocks = 1``, its sub-block-masked form at ``subblocks > 1``.
 
 Device-resident loop (``run()``, the default). The host enqueues the
 supersteps of a chunk — up to the next repartition boundary — without
@@ -42,13 +43,24 @@ pruning floor, hot slot i runs ``max(1, hot_inner_iters >> i)`` passes, and
 the dispatch width shrinks to the live active set at repartition
 boundaries.
 
-This slice ports the default configuration: ``subblocks=1``, fully
-resident, cold start, no tracing. The options of later slices raise
-``NotImplementedError``.
+Hierarchical partitions (``EngineConfig.subblocks = S``): psd/dmax/calm
+are (P, S); scheduling and repartitioning stay block-granular (block
+priority = max over sub-blocks), a swept block masks the sub-ranges under
+the pruning floor, and the staleness coupling is (P, P, S), so an upstream
+delta re-arms only the sub-ranges that receive its edges.
+
+Warm starts and streaming commits (``run(warm=WarmStart(...))``,
+``update_edge_rows``/``update_aux``/``update_coupling_rows``) serve
+:mod:`repro_torch.stream`: the commits copy the touched rows into the live
+tensors in place, billing the host->device bytes as the reference does.
+
+Fully resident, no tracing: ``resident_blocks`` and ``trace=True`` belong to
+later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -84,23 +96,26 @@ class EngineConfig:
     stale_eps: float = 1e-12  # PSD above this marks downstream blocks dirty
     fused: bool = True  # device-resident superstep loop
     adaptive: bool = True  # active-set execution (False = fixed-slate)
-    subblocks: int = 1  # only 1 in this slice (sub-block slice)
+    subblocks: int = 1  # sub-blocks per block (hierarchical activity)
     retire_after: int = 3  # consecutive sub-floor supersteps before retire
     min_width: int = 2  # narrowest dispatch-width bucket
     resident_blocks: int | None = None  # only None (out-of-core slice)
+    tile_slack: float = 0.0  # spare tile capacity per block (streaming)
+    spare_tiles: int = 0  # flat extra tiles per block (streaming)
+    keep_dead_blocks: bool = False  # dead vertices get block slots (streaming)
     seed: int = 0
 
 
 def check_config(config: EngineConfig) -> None:
     """Reject the options whose port belongs to a later slice."""
-    if config.subblocks != 1:
-        raise NotImplementedError(
-            "subblocks > 1 comes with the sub-block (masked sweep) slice")
     if config.resident_blocks is not None:
         raise NotImplementedError(
             "resident_blocks comes with the out-of-core slice")
     if not 1 <= config.width <= kb.MAX_SLOTS:
         raise ValueError(f"width must be 1..{kb.MAX_SLOTS}")
+    if config.subblocks < 1 or config.block_size % config.subblocks:
+        raise ValueError(f"subblocks ({config.subblocks}) must be >= 1 and "
+                         f"divide block_size ({config.block_size})")
 
 
 def resolve_device(device) -> torch.device:
@@ -123,19 +138,47 @@ class RunResult:
     host_syncs: int = 0  # device->host reads of the loop state
 
 
+@dataclasses.dataclass(frozen=True)
+class WarmStart:
+    """Re-enter convergence from a previous fixpoint (streaming re-heat).
+
+    ``values`` is in PERMUTED order, padded to the engine's value length;
+    ``psd`` carries UNSEEN for dirty (sub-)blocks and 0 or a finite bump for
+    clean ones (``state.warm_psd``/``warm_psd_sub``); ``is_hot`` is the
+    dirty mask (warm runs repartition in universal mode). ``calm`` seeds the
+    block-local convergence counters and ``i2`` overrides the cold-admission
+    cadence for this run; both are ignored when ``config.adaptive`` is off.
+    """
+
+    values: np.ndarray
+    psd: np.ndarray
+    is_hot: np.ndarray
+    calm: np.ndarray | None = None
+    i2: int | None = None
+
+
 class EdgeData(NamedTuple):
-    """Device-resident edge state of the tiled layout, plus the per-vertex
-    slot ranges the sweep kernel's fold reads."""
+    """Device-resident edge state of the tiled layout. The first six fields
+    are the reference's ``EdgeData``; the last four are the sweep kernel's
+    fold metadata (``kernels.block_sweep.fold_metadata``), derived from the
+    tiles, kept current by the commits and never billed as an upload."""
 
     src: torch.Tensor  # (n_tiles, TILE) int32
     dstl: torch.Tensor  # (n_tiles, TILE) int32
     w: torch.Tensor  # (n_tiles, TILE) float32
     valid: torch.Tensor  # (n_tiles, TILE) bool
+    cov: torch.Tensor  # (n_tiles, S) bool: sub-block dst coverage per tile
     aux: torch.Tensor  # (n,) float32 per-vertex constant (e.g. out-degree)
     tile_start: torch.Tensor  # (P,) int32
     tile_cnt: torch.Tensor  # (P,) int32
-    vlo: torch.Tensor  # (values_len,) int32: first tile slot of v's edges
-    vhi: torch.Tensor  # (values_len,) int32: one past the last (== vlo: none)
+    link: torch.Tensor  # (n_tiles, TILE) int32: next slot of a run, head
+    heads: torch.Tensor  # (n_tiles * TILE,) int32: vertices' head slots
+    hlo: torch.Tensor  # (values_len,) int32: v's heads are heads[hlo:hhi]
+    hhi: torch.Tensor  # (values_len,) int32
+
+
+# the reference's EdgeData fields: the full upload and the commits' bytes
+UPLOADED_FIELDS = ("src", "dstl", "w", "valid", "cov", "aux")
 
 
 def tile_coverage(dst_local, valid, subblocks: int,
@@ -154,57 +197,34 @@ def tile_coverage(dst_local, valid, subblocks: int,
     return cov
 
 
-def vertex_slots(store: TiledStorage, block_size: int,
-                 values_len: int) -> tuple[np.ndarray, np.ndarray]:
-    """(vlo, vhi): the flat tile-slot range [vlo[v], vhi[v]) holding vertex
-    v's in-edges. Raises if the tiles are not in destination order with
-    each vertex's edges contiguous — the order the kernel's fold needs and
-    ``build_tiled_storage`` produces."""
-    if store.src.size >= 2 ** 31:
-        raise ValueError("tile slots must fit int32")
+def edge_data(store: TiledStorage, aux, block_size: int, values_len: int,
+              subblocks: int, device: torch.device) -> EdgeData:
     cnt = np.asarray(store.tile_cnt, dtype=np.int64)
     if not np.array_equal(np.asarray(store.tile_start, dtype=np.int64),
                           np.cumsum(cnt) - cnt):
+        # the fold metadata packs each block's heads in its own slot range
         raise ValueError("tile runs must be laid out in block order")
-    pos = np.flatnonzero(np.asarray(store.valid).reshape(-1))
-    block_of_tile = np.repeat(np.arange(store.num_blocks, dtype=np.int64),
-                              cnt)
-    tile = pos // TILE
-    dst = (block_of_tile[tile] * block_size
-           + np.asarray(store.dst_local).reshape(-1)[pos])
-    if np.any(np.diff(dst) < 0):
-        raise ValueError("tile slots must be in destination order")
-    verts = np.arange(values_len)
-    lo = np.searchsorted(dst, verts, side="left")
-    hi = np.searchsorted(dst, verts, side="right")
-    has = hi > lo
-    vlo = np.zeros(values_len, dtype=np.int64)
-    vhi = np.zeros(values_len, dtype=np.int64)
-    vlo[has] = pos[lo[has]]
-    vhi[has] = pos[hi[has] - 1] + 1
-    if not np.array_equal(vhi - vlo, hi - lo):
-        raise ValueError("each vertex's edge slots must be contiguous")
-    return vlo.astype(np.int32), vhi.astype(np.int32)
-
-
-def edge_data(store: TiledStorage, aux, block_size: int, values_len: int,
-              device: torch.device) -> EdgeData:
-    vlo, vhi = vertex_slots(store, block_size, values_len)
 
     def dev(a, dtype):
         a = np.asarray(a)
         if not a.flags.writeable:  # torch shares memory only if writable
             a = a.copy()
-        return torch.as_tensor(a).to(device=device, dtype=dtype)
+        # always a copy: the commits write the live tensors in place
+        return torch.as_tensor(a).to(device=device, dtype=dtype, copy=True)
 
-    return EdgeData(src=dev(store.src, torch.int32),
-                    dstl=dev(store.dst_local, torch.int32),
-                    w=dev(store.w, torch.float32),
-                    valid=dev(store.valid, torch.bool),
-                    aux=dev(aux, torch.float32),
-                    tile_start=dev(store.tile_start, torch.int32),
-                    tile_cnt=dev(store.tile_cnt, torch.int32),
-                    vlo=dev(vlo, torch.int32), vhi=dev(vhi, torch.int32))
+    dstl = dev(store.dst_local, torch.int32)
+    valid = dev(store.valid, torch.bool)
+    tile_start = dev(store.tile_start, torch.int32)
+    tile_cnt = dev(store.tile_cnt, torch.int32)
+    link, heads, hlo, hhi = kb.fold_metadata(dstl, valid, tile_start,
+                                             tile_cnt, block_size, values_len)
+    return EdgeData(src=dev(store.src, torch.int32), dstl=dstl,
+                    w=dev(store.w, torch.float32), valid=valid,
+                    cov=dev(tile_coverage(store.dst_local, store.valid,
+                                          subblocks, block_size), torch.bool),
+                    aux=dev(aux, torch.float32), tile_start=tile_start,
+                    tile_cnt=tile_cnt, link=link, heads=heads, hlo=hlo,
+                    hhi=hhi)
 
 
 # -- adaptive-schedule decision helpers (copies of the reference's) ----------
@@ -242,7 +262,8 @@ def acct_table(plan: PartitionPlan, edge_counts: np.ndarray) -> np.ndarray:
 
 
 def make_tiled_processor(program: VertexProgram, ed: EdgeData,
-                         block_size: int, n_live: int, n_total: int):
+                         block_size: int, n_live: int, n_total: int,
+                         subblocks: int = 1, floor: float = 0.0):
     """Block processor over the unified tiled layout, through the sweep
     kernel. Unlike the reference's functional per-block processors, both
     update in place and take a whole slate (``rows``/``ok``, (W,)):
@@ -255,19 +276,29 @@ def make_tiled_processor(program: VertexProgram, ed: EdgeData,
       hot sweep), each pass reading the previous one's writes.
 
     Both write the block's new values, and its (mean, max) delta at
-    ``psd[row]``/``dmax[row]``; slots that are not ok write nothing."""
+    ``psd[row]``/``dmax[row]``; slots that are not ok write nothing. With
+    ``subblocks > 1`` they run the masked kernel: each slot's mask is
+    ``psd[row] >= floor`` at its entry, and the deltas are per sub-block
+    ((P, S) psd/dmax; masked entries keep their values)."""
     scratch = kb.make_scratch(ed, block_size)
     kw = dict(block_size=block_size, n_live=n_live)
+    if subblocks == 1:
+        sweep = kb.block_sweep
+    else:
+        sweep = functools.partial(kb.masked_block_sweep, floor=floor)
 
     def process_one(ed, values, psd, dmax, rows, ok, out=None):
-        kb.block_sweep(program, n_total, ed, values, rows, ok, psd, dmax,
-                       scratch, out=out, **kw)
+        if out is None:
+            sweep(program, n_total, ed, values, rows, ok, psd, dmax,
+                  scratch, **kw)
+        else:  # the baseline's double buffer (flat blocks only)
+            kb.block_sweep(program, n_total, ed, values, rows, ok, psd,
+                           dmax, scratch, out=out, **kw)
 
     def process_iterated(ed, values, psd, dmax, rows, ok, t_inner):
         for p in range(t_inner):
-            kb.block_sweep(program, n_total, ed, values, rows, ok, psd,
-                           dmax, scratch, first=p == 0,
-                           last=p == t_inner - 1, **kw)
+            sweep(program, n_total, ed, values, rows, ok, psd, dmax,
+                  scratch, first=p == 0, last=p == t_inner - 1, **kw)
 
     return process_one, process_iterated
 
@@ -276,7 +307,8 @@ def coupling_from_counts(block_edge_counts: np.ndarray,
                          program: VertexProgram,
                          block_size: int) -> np.ndarray:
     """(P, P) staleness-coupling matrix from the block->block edge-count
-    matrix W_jb (number of edges from block j's vertices into block b)."""
+    matrix W_jb (number of edges from block j's vertices into block b), or
+    (P, P, S) from sub-resolved counts W_jbs."""
     w = block_edge_counts
     if program.combine == "sum":
         k = (np.minimum(w, block_size) / block_size).astype(np.float32)
@@ -293,6 +325,12 @@ def _f32(x: float) -> float:
 class StructureAwareEngine:
     """Paper pipeline: build plan -> iterate (schedule, process, repartition)."""
 
+    # the reference's fixed-size commit chunks (entries per scatter); its
+    # byte accounting bills whole chunks
+    _ROW_CHUNK = 16  # tile rows
+    _AUX_CHUNK = 256  # aux entries
+    _COUPLING_CHUNK = 16  # coupling rows
+
     def __init__(self, graph: Graph, program: VertexProgram,
                  config: EngineConfig = EngineConfig(), device="cuda"):
         check_config(config)
@@ -301,7 +339,9 @@ class StructureAwareEngine:
         plan = build_plan(
             g, block_size=config.block_size, alpha=config.alpha,
             sample_frac=config.sample_frac, hot_ratio=config.hot_ratio,
-            seed=config.seed)
+            seed=config.seed, tile_slack=config.tile_slack,
+            spare_tiles=config.spare_tiles,
+            keep_dead=config.keep_dead_blocks, subblocks=config.subblocks)
         vals0, aux0 = program.init(g)  # original ids ...
         values0 = _init_dead(program, plan, vals0[plan.order])  # ... permuted
         # pad so every block's (base, block_size) slice is in bounds
@@ -311,7 +351,7 @@ class StructureAwareEngine:
         counts = block_coupling_counts(plan)
         self._setup(plan, program, config, dev, values0, aux0[plan.order],
                     coupling_from_counts(counts, program, plan.block_size),
-                    plan.barrier_block)
+                    plan.barrier_block, counts)
 
     @classmethod
     def from_plan(cls, plan: PartitionPlan, program: VertexProgram,
@@ -320,7 +360,8 @@ class StructureAwareEngine:
                   device="cuda") -> "StructureAwareEngine":
         """An engine over given state (see :mod:`repro_torch.interop`):
         ``values0`` permuted, dead-initialised and padded; ``aux`` permuted;
-        the (P, P) coupling matrix; the born hot prefix."""
+        the (P, P) coupling matrix, (P, P, S) at S > 1; the born hot
+        prefix."""
         check_config(config)
         self = cls.__new__(cls)
         self._setup(plan, program, config, resolve_device(device),
@@ -330,19 +371,29 @@ class StructureAwareEngine:
         return self
 
     def _setup(self, plan, program, config, device, values0, aux, coupling,
-               barrier_block):
+               barrier_block, coupling_counts=None):
         self.plan, self.program, self.config = plan, program, config
         self.device = device
         self.values0 = values0
         self._values_len = values0.size
         self.barrier_block = barrier_block
+        # host copies the streaming engine reads and the commits keep
+        # current: permuted aux, per-block live edge counts (the accounting
+        # units), and the block->block edge counts behind the coupling
+        self.aux = np.array(aux, dtype=np.float32)
         self.edge_counts = np.array(plan.unified.edges, dtype=np.int64)
+        self.coupling_counts = coupling_counts
         self._ed = edge_data(plan.unified, aux, plan.block_size,
-                             self._values_len, device)
-        self._coupling_dev = torch.as_tensor(coupling).to(device)
+                             self._values_len, config.subblocks, device)
+        self._coupling = np.array(coupling, dtype=np.float32)
+        self._coupling_dev = torch.tensor(self._coupling, device=device)
         self._proc = make_tiled_processor(program, self._ed,
                                           plan.block_size, plan.n_live,
-                                          plan.graph.n)
+                                          plan.graph.n, config.subblocks,
+                                          _f32(self._psd_floor()))
+        # the block owning each tile row (commits refresh fold metadata)
+        self._row_block = np.repeat(np.arange(plan.num_blocks),
+                                    plan.unified.tile_cnt)
         self._sweep_fns: dict = {}
         self._ladder = (width_ladder(config.width, config.min_width)
                         if config.adaptive else [config.width])
@@ -358,11 +409,16 @@ class StructureAwareEngine:
 
     def _post(self, coupling, psd, dmax, calm):
         """Consume dmax: re-arm downstream blocks through the coupling
-        (max-product matvec), then reset it; advance the calm counters."""
+        (max-product matvec), then reset it; advance the calm counters.
+        The outgoing signal is block-granular (the block's max sub-delta);
+        with a (P, P, S) coupling the incoming bump is per sub-range."""
         eps, floor = _f32(self.config.stale_eps), _f32(self._psd_floor())
         d = torch.where(dmax > eps, dmax, 0.0)
         dblk = d.amax(dim=1)
-        bump = (dblk[:, None] * coupling).amax(dim=0)[:, None]
+        if coupling.dim() == 3:
+            bump = (dblk[:, None, None] * coupling).amax(dim=0)
+        else:
+            bump = (dblk[:, None] * coupling).amax(dim=0)[:, None]
         psd = torch.maximum(psd, torch.clamp(bump, max=_f32(1e29)))
         calm = torch.where(psd < floor, calm + 1, 0).to(torch.int32)
         return psd, torch.zeros_like(dmax), calm
@@ -422,42 +478,167 @@ class StructureAwareEngine:
             metrics.bytes_loaded += block_io_bytes(e, p.block_size)
             metrics.edges_processed += e
 
+    # -- streaming hooks -----------------------------------------------------
+    @property
+    def edge_state(self) -> EdgeData:
+        """The live device-resident edge state (the commits update it in
+        place)."""
+        return self._ed
+
+    def _copy_rows(self, targets, idx: np.ndarray, payloads,
+                   chunk: int) -> int:
+        """Copy ``payloads`` into the live ``targets`` at ``idx``, in place,
+        in the reference's fixed-size chunks. Returns the entry count the
+        reference bills (whole chunks)."""
+        for at in range(0, idx.size, chunk):
+            i = torch.as_tensor(idx[at:at + chunk]).to(self.device)
+            for t, p in zip(targets, payloads):
+                t.index_copy_(0, i, torch.as_tensor(
+                    np.ascontiguousarray(p[at:at + chunk])).to(self.device))
+        return -(-idx.size // chunk) * chunk
+
+    def update_edge_rows(self, rows: np.ndarray, *, src, dst_local, w,
+                         valid) -> int:
+        """Copy updated TILE ROWS into the live EdgeData, recompute their
+        coverage, and refresh the kernel's fold metadata of the blocks that
+        own them. ``rows`` are unified-tile row indices; the payloads are
+        the matching (len(rows), TILE) slices. Returns the transferred
+        bytes as the reference bills them (chunked rows + indices; the fold
+        metadata is derived on the device and not billed)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if rows.size == 0:
+            return 0
+        c, ed = self.plan.block_size, self._ed
+        cov = tile_coverage(dst_local, valid, self.config.subblocks, c)
+        pk = self._copy_rows(
+            (ed.src, ed.dstl, ed.w, ed.valid, ed.cov), rows,
+            [np.asarray(src, np.int32), np.asarray(dst_local, np.int32),
+             np.asarray(w, np.float32), np.asarray(valid, bool), cov],
+            self._ROW_CHUNK)
+        kb.refresh_fold_metadata(ed, c, np.unique(self._row_block[rows]))
+        # 4B src + 4B dst offset + 4B w + 1B valid per slot + 1B per
+        # sub-block coverage bit + 4B row index
+        return pk * (TILE * 13 + int(ed.cov.shape[1]) + 4)
+
+    def update_aux(self, idx: np.ndarray, vals: np.ndarray) -> int:
+        """Copy changed per-vertex aux entries into the live EdgeData.
+        Returns the transferred bytes (chunked values + indices)."""
+        idx = np.asarray(idx, dtype=np.int64)
+        vals = np.asarray(vals, dtype=np.float32)
+        if idx.size == 0:
+            return 0
+        pk = self._copy_rows((self._ed.aux,), idx, [vals], self._AUX_CHUNK)
+        self.aux[idx] = vals
+        return pk * 8
+
+    def update_coupling_rows(self, rows: np.ndarray,
+                             row_vals: np.ndarray) -> int:
+        """Replace changed ROWS of the staleness-coupling matrix (host copy
+        and device). Returns the transferred bytes (chunked rows +
+        indices)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        row_vals = np.asarray(row_vals, dtype=np.float32)
+        if rows.size == 0:
+            return 0
+        self._coupling[rows] = row_vals
+        pk = self._copy_rows((self._coupling_dev,), rows, [row_vals],
+                             self._COUPLING_CHUNK)
+        return pk * (int(self._coupling[0].size) * 4 + 4)
+
+    @property
+    def values_nbytes(self) -> int:
+        """Bytes of one padded warm-values upload."""
+        return int(self._values_len * 4)
+
+    def full_upload_bytes(self) -> int:
+        """Host->device bytes of a FULL dynamic-state refresh (the
+        reference's EdgeData fields + coupling + warm values): the
+        denominator of the streaming ``upload_frac``."""
+        edge_bytes = sum(t.numel() * t.element_size() for t in
+                         (getattr(self._ed, f) for f in UPLOADED_FIELDS))
+        return int(edge_bytes + self._coupling.nbytes + self._values_len * 4)
+
+    def pad_values(self, values_perm: np.ndarray) -> np.ndarray:
+        """Pad a permuted (n,) value vector to the engine's value length."""
+        pad = self._values_len - values_perm.shape[0]
+        if pad:
+            return np.concatenate(
+                [values_perm, np.zeros(pad, dtype=values_perm.dtype)])
+        return values_perm
+
+    def prewarm_buckets(self) -> list[int]:
+        """The reference compiles one fused chunk per dispatch-width bucket
+        here; the kernel takes any slate, so there is nothing to compile.
+        On a card this builds and loads the sweep kernel, so no streaming
+        batch pays for it. Returns the width ladder."""
+        if self.device.type == "cuda":
+            kb.load_library()
+        return list(self._ladder)
+
     # -- main loop ----------------------------------------------------------
     def run(self, max_iterations: int | None = None,
-            fused: bool | None = None, warm=None,
+            fused: bool | None = None, warm: WarmStart | None = None,
             trace: bool | None = None) -> RunResult:
-        """Run to convergence from the cold start. ``fused`` overrides
-        ``config.fused``: True = device-resident chunked loop (host reads
-        only at repartition boundaries), False = host-driven reference loop
-        (one read per iteration)."""
-        if warm is not None:
-            raise NotImplementedError(
-                "warm starts come with the streaming slice")
+        """Run to convergence. ``fused`` overrides ``config.fused``: True =
+        device-resident chunked loop (host reads only at repartition
+        boundaries), False = host-driven reference loop (one read per
+        iteration). ``warm`` re-enters from a previous fixpoint with only
+        the dirty (sub-)blocks re-heated."""
         if trace:
             raise NotImplementedError(
                 "trace=True comes with the tracing slice")
         fused = self.config.fused if fused is None else fused
-        return (self._run_fused(max_iterations) if fused
-                else self._run_host(max_iterations))
+        return (self._run_fused(max_iterations, warm) if fused
+                else self._run_host(max_iterations, warm))
 
-    def _start_state(self):
-        cfg, p = self.config, self.plan
-        dev = self.device
-        mode = "barrier" if self.program.monotone_cooling else "universal"
-        rep = RepartitionState.create(
-            p.num_blocks, self.barrier_block, mode,
-            interval=cfg.repartition_interval,
-            growth=cfg.repartition_growth)
-        psd0 = state_lib.init_psd(p.num_blocks, cfg.subblocks)
+    def _sub2d(self, a: np.ndarray) -> np.ndarray:
+        """A per-block (P,) state vector in the engine's (P, S) layout,
+        replicated across sub-blocks; (P, S) input passes through."""
+        a = np.asarray(a)
+        if a.ndim == 2:
+            return a
+        return np.repeat(a[:, None], self.config.subblocks, axis=1)
+
+    def _start_state(self, warm: WarmStart | None):
+        """(values, psd, psd host copy, rep, calm, i2): the start state of a
+        run. Cold runs start fully active at the configured cadence; warm
+        runs may seed calm counters and a delta-scaled cadence (ignored
+        when adaptive is off)."""
+        cfg, p, dev = self.config, self.plan, self.device
         calm0 = np.zeros((p.num_blocks, cfg.subblocks), dtype=np.int32)
-        return (torch.as_tensor(self.values0).to(dev).clone(),
-                torch.as_tensor(psd0).to(dev).clone(), psd0, rep, calm0)
+        if warm is None:
+            mode = ("barrier" if self.program.monotone_cooling
+                    else "universal")
+            rep = RepartitionState.create(
+                p.num_blocks, self.barrier_block, mode,
+                interval=cfg.repartition_interval,
+                growth=cfg.repartition_growth)
+            psd0 = state_lib.init_psd(p.num_blocks, cfg.subblocks)
+            values, i2 = self.values0, cfg.i2
+        else:
+            if warm.values.shape[0] != self._values_len:
+                raise ValueError(
+                    "warm values must be permuted + padded "
+                    f"({warm.values.shape[0]} != {self._values_len})")
+            rep = RepartitionState.warm(
+                warm.is_hot, interval=cfg.repartition_interval,
+                growth=cfg.repartition_growth)
+            if cfg.adaptive and warm.calm is not None:
+                calm0 = self._sub2d(warm.calm).astype(np.int32)
+            i2 = (warm.i2 if cfg.adaptive and warm.i2 is not None
+                  else cfg.i2)
+            psd0 = self._sub2d(np.asarray(warm.psd, dtype=np.float32)) \
+                .astype(np.float32)
+            values = np.asarray(warm.values, dtype=np.float32)
+        return (torch.tensor(values, device=dev),
+                torch.tensor(psd0, device=dev), psd0, rep, calm0, int(i2))
 
-    def _run_fused(self, max_iterations: int | None = None) -> RunResult:
+    def _run_fused(self, max_iterations: int | None = None,
+                   warm: WarmStart | None = None) -> RunResult:
         cfg, p, dev = self.config, self.plan, self.device
         max_it = max_iterations or cfg.max_iterations
-        values, psd, psd_sub_host, rep, calm_host = self._start_state()
-        i2 = cfg.i2
+        values, psd, psd_sub_host, rep, calm_host, i2 = \
+            self._start_state(warm)
         t2 = cfg.t2
         floor = _f32(self._psd_floor())
         calm = torch.as_tensor(calm_host).to(dev)
@@ -594,14 +775,15 @@ class StructureAwareEngine:
                   torch.as_tensor(rows).to(self.device),
                   torch.as_tensor(ok).to(self.device))
 
-    def _run_host(self, max_iterations: int | None = None) -> RunResult:
+    def _run_host(self, max_iterations: int | None = None,
+                  warm: WarmStart | None = None) -> RunResult:
         cfg, p = self.config, self.plan
         max_it = max_iterations or cfg.max_iterations
-        values, psd, psd_sub, rep, calm_host = self._start_state()
+        values, psd, psd_sub, rep, calm_host, i2 = self._start_state(warm)
         psd_host = state_lib.fold_subblock_psd(psd_sub)
         sched = Scheduler(width=self._pick_width(
                               self._active_count(calm_host), psd_host),
-                          i2=cfg.i2, cold_frac=cfg.cold_frac,
+                          i2=i2, cold_frac=cfg.cold_frac,
                           min_psd=self._psd_floor())
         calm = torch.as_tensor(calm_host).to(self.device)
         dmax = torch.zeros((p.num_blocks, cfg.subblocks), dtype=torch.float32,
@@ -679,13 +861,17 @@ def _init_dead(program: VertexProgram, plan: PartitionPlan,
 
 def block_coupling_counts(plan: PartitionPlan) -> np.ndarray:
     """(P, P) block->block edge counts W_jb over the permuted graph's
-    out-edges (the dead tail dropped)."""
-    g, c = plan.graph, plan.block_size
-    w = np.zeros((plan.num_blocks, plan.num_blocks), dtype=np.int64)
-    for j in range(plan.num_blocks):
-        lo, hi = plan.block_range(j)
-        dsts = g.out_dst[g.out_indptr[lo]:g.out_indptr[hi]]
-        blocks, counts = np.unique(dsts // c, return_counts=True)
-        keep = blocks < plan.num_blocks
-        w[j, blocks[keep]] = counts[keep]
-    return w
+    out-edges (the dead tail dropped); (P, P, S) W_jbs, resolved to the
+    destination's sub-range, when the plan has S > 1 sub-blocks."""
+    g, c, s = plan.graph, plan.block_size, plan.subblocks
+    nb = plan.num_blocks
+    deg = np.diff(g.out_indptr[:plan.n_live + 1])
+    src_blk = np.repeat(np.arange(plan.n_live, dtype=np.int64) // c, deg)
+    dst = g.out_dst[:g.out_indptr[plan.n_live]].astype(np.int64)
+    keep = dst // c < nb
+    src_blk, dst = src_blk[keep], dst[keep]
+    idx = src_blk * nb + dst // c
+    if s > 1:
+        idx = idx * s + (dst % c) // plan.sub_size
+    shape = (nb, nb) if s == 1 else (nb, nb, s)
+    return np.bincount(idx, minlength=int(np.prod(shape))).reshape(shape)

@@ -1,17 +1,18 @@
 """Partition state degree (PSD) bookkeeping + convergence test (§3.3, §4).
 
 Port of ``repro.core.state``: the host helpers are numpy copies, the device
-twins take torch tensors. Only the cold-start, single-lane helpers are here;
-the warm-restart and lane helpers arrive with the streaming and serving
-slices.
+twins take torch tensors. The lane helpers arrive with the serving slice.
 
 PSD(j) is the mean per-vertex state-degree delta from the most recent time
 block j was processed. Unprocessed blocks carry PSD = UNSEEN (a large
 sentinel), which (a) gives every block first-visit priority and (b) blocks
 convergence until the whole graph has been processed at least once.
 
-The engine keeps psd as (P, S) with S = 1 sub-blocks (the layout of the
-reference); every fold over that trailing axis is an identity.
+Hierarchical partitions (sub-blocks): with ``EngineConfig.subblocks = S``
+every block is split into S contiguous vertex ranges and the PSD / calm
+state is (P, S). Scheduling stays block-granular: the block priority is the
+MAX over its sub-blocks, and convergence is SUM over blocks of that max. At
+S = 1 every fold over the trailing axis is an identity.
 """
 from __future__ import annotations
 
@@ -40,8 +41,54 @@ def fold_subblock_psd_device(psd: torch.Tensor) -> torch.Tensor:
     return psd.amax(dim=-1) if psd.dim() == 2 else psd
 
 
+def warm_psd(num_blocks: int, dirty: np.ndarray,
+             bump: np.ndarray | None = None) -> np.ndarray:
+    """PSD vector for a warm re-start over an already-converged state
+    (streaming re-heat): dirty blocks carry the UNSEEN sentinel, clean
+    blocks start individually converged (PSD 0) or at the finite aux
+    staleness ``bump`` when given."""
+    psd = np.zeros(num_blocks, dtype=np.float32)
+    if bump is not None:
+        psd = np.maximum(psd, np.asarray(bump, dtype=np.float32))
+    psd[np.asarray(dirty)] = UNSEEN
+    return psd
+
+
+def warm_calm(num_blocks: int, armed: np.ndarray,
+              retire_after: int) -> np.ndarray:
+    """Block-local convergence counters for a warm restart: armed blocks
+    start fresh (calm 0), clean ones start retired (``retire_after``) and
+    re-enter only when a bump lifts their PSD back over the floor."""
+    calm = np.full(num_blocks, retire_after, dtype=np.int32)
+    calm[np.asarray(armed, dtype=bool)] = 0
+    return calm
+
+
+def warm_psd_sub(num_blocks: int, subblocks: int, dirty_sub: np.ndarray,
+                 bump: np.ndarray | None = None) -> np.ndarray:
+    """(P, S) warm-restart PSD: the sub-block refinement of
+    :func:`warm_psd`. ``bump`` is (P, S), or (P,) applied to every
+    sub-block of a bumped block."""
+    psd = np.zeros((num_blocks, subblocks), dtype=np.float32)
+    if bump is not None:
+        b = np.asarray(bump, dtype=np.float32)
+        psd = np.maximum(psd, b if b.ndim == 2 else b[:, None])
+    psd[np.asarray(dirty_sub, dtype=bool)] = UNSEEN
+    return psd
+
+
+def warm_calm_sub(num_blocks: int, subblocks: int, armed_sub: np.ndarray,
+                  retire_after: int) -> np.ndarray:
+    """(P, S) warm-restart calm counters: armed sub-blocks start fresh,
+    clean ones start retired (see :func:`warm_calm`)."""
+    calm = np.full((num_blocks, subblocks), retire_after, dtype=np.int32)
+    calm[np.asarray(armed_sub, dtype=bool)] = 0
+    return calm
+
+
 def converged(psd: np.ndarray, t2: float) -> bool:
-    """Paper §4: the entire graph converges when sum of PSDs < T2."""
+    """Paper §4: the entire graph converges when sum of PSDs < T2. With a
+    sub-block axis the per-block summand is the max over sub-blocks."""
     folded = fold_subblock_psd(np.asarray(psd, dtype=np.float64))
     return bool(folded.sum() < t2)
 

@@ -6,7 +6,10 @@ permutation, the unified tile arrays, the initial values and aux, the
 coupling matrix and the born hot labels — bypassing the port's own
 ``build_plan``. A test can then hold a sweep or a superstep against the
 reference on identical state even if planning ever diverged: the arrays
-play the role that weights play in a model port.
+play the role that weights play in a model port. The tile arrays may be a
+reference engine's LIVE edge state after streaming ingests (appends, kills
+and rebuilt runs in any slot order): the port derives its kernel's fold
+metadata from whatever layout it is given.
 
 The arrays (all numpy, reference names):
 
@@ -15,15 +18,18 @@ The arrays (all numpy, reference names):
     src, dst_local, w,    plan.unified tile arrays, (n_tiles, TILE)
     valid
     tile_start, tile_cnt, plan.unified per-block arrays, (P,)
-    edges
+    edges                 (engine.edge_counts after ingests)
     values0               engine.values0 (permuted, dead-initialised, padded)
     aux                   engine.aux (permuted)
-    coupling              engine._coupling, (P, P)
+    coupling              engine._coupling, (P, P), or (P, P, S) at S > 1
     is_hot                the born hot labels, a prefix of the blocks (P,)
+    cov                   optional: engine EdgeData.cov, (n_tiles, S); the
+                          port's own coverage of the tiles must equal it
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.algorithms import VertexProgram
 from repro_torch.core.engine import EngineConfig, StructureAwareEngine
@@ -65,7 +71,13 @@ def engine_from_arrays(program: VertexProgram, config: EngineConfig,
                          order=a["order"].astype(np.int64), block_size=c,
                          num_blocks=store.num_blocks, n_live=n_live,
                          n_dead=n - n_live, barrier_block=barrier,
-                         unified=store, ad=np.zeros(n), t1=0.0, alpha=0.0)
-    return StructureAwareEngine.from_plan(
+                         unified=store, ad=np.zeros(n), t1=0.0, alpha=0.0,
+                         subblocks=config.subblocks)
+    eng = StructureAwareEngine.from_plan(
         plan, program, config, a["values0"], a["aux"], a["coupling"],
         barrier, device=device)
+    if "cov" in arrays and not torch.equal(
+            eng.edge_state.cov.cpu(),
+            torch.as_tensor(np.array(arrays["cov"], dtype=bool))):
+        raise ValueError("the tiles' coverage differs from the given cov")
+    return eng

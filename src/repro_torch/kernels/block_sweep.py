@@ -1,20 +1,37 @@
-"""The fused block sweep: hand-written CUDA kernel, its wrapper, and its
+"""The fused block sweep: hand-written CUDA kernel, its wrappers, and its
 plain PyTorch version.
 
 Replaces the reference's Pallas kernel
-``repro/kernels/block_sweep.py::_sweep_kernel`` (single-lane, unmasked),
-built by ``make_block_sweep``, together with the delta tail of
-``repro/core/engine.py::make_tiled_processor.process_one``. The kernel is
-``repro_torch/csrc/block_sweep.cu``; its source note gives the design: two
-launches (a parallel pass over every tile of the slate, then an ordered
-per-destination fold) so the hub block that a power-law graph puts first
-never runs on one SM, and a fixed sum order that the plain version here
-repeats bitwise. It is bound by bytes: ~21 B per edge slot (13 B tile row + 4 B value
-gather + 4 B aux gather) plus 4 B per vertex written.
+``repro/kernels/block_sweep.py::_sweep_kernel`` (single-lane), built by
+``make_block_sweep``, together with the delta tail of
+``repro/core/engine.py::make_tiled_processor.process_one``, in both of its
+single-lane forms:
 
-:func:`block_sweep` launches the kernel for tensors on a CUDA device and
-runs :func:`block_sweep_ref` for tensors on the CPU; there is no other path.
-``block_sweep.launches`` counts kernel launch pairs.
+* :func:`block_sweep` — kernel 1, the unmasked sweep (``subblocks = 1``);
+* :func:`masked_block_sweep` — kernel 1m, the sub-block-masked sweep
+  (``subblocks = S > 1``): each slot derives its block's ``sub_act`` mask
+  from its PSD row on the device, skips tiles whose coverage is all
+  masked, writes only live, active vertices and per-sub-block deltas.
+
+The kernel is ``repro_torch/csrc/block_sweep.cu``; its source note gives
+the design: two launches (a parallel pass over every tile of the slate,
+then an ordered per-destination fold) so the hub block that a power-law
+graph puts first never runs on one SM, and a fixed sum order that the
+plain version here repeats bitwise on any tile layout. It is bound by
+bytes: ~21 B per edge slot (13 B tile row + 4 B value gather + 4 B aux
+gather) plus 4 B per vertex written.
+
+The kernel finds each destination's messages through fold metadata that
+:func:`fold_metadata` derives from the tiles (per-slot links inside a tile,
+per-vertex lists of head slots in tile order). The streaming commit path
+refreshes it for the blocks it touches (:func:`refresh_fold_metadata`), so
+appends at a watermark, holes left by kills and runs rebuilt in any order
+are all swept in the order the plain version defines.
+
+The wrappers launch the kernel for tensors on a CUDA device and run
+:func:`block_sweep_ref` for tensors on the CPU; there is no other path.
+``block_sweep.launches`` and ``masked_block_sweep.launches`` count kernel
+launch pairs.
 """
 from __future__ import annotations
 
@@ -30,6 +47,8 @@ TILE = 512  # csrc/block_sweep.cu: edge slots per tile row (partition.TILE)
 MAX_SLOTS = 8192  # csrc/block_sweep.cu: slate size the tile pass can scan
 MAX_BLOCK = 1024  # csrc/block_sweep.cu: one thread per block vertex
 TILE_CTAS_PER_SM = 4  # 512-thread tile-pass blocks resident per SM
+LINK_NEXT = 0x3FF  # csrc/block_sweep.cu: next slot of the run, local + 1
+LINK_HEAD = 0x10000  # csrc/block_sweep.cu: first slot of its run in a tile
 
 
 @dataclasses.dataclass
@@ -62,30 +81,157 @@ def make_scratch(ed, block_size: int) -> SweepScratch:
     return scratch
 
 
+# -- fold metadata -------------------------------------------------------------
+def fold_metadata(dstl: torch.Tensor, valid: torch.Tensor,
+                  tile_start: torch.Tensor, tile_cnt: torch.Tensor,
+                  block_size: int, values_len: int):
+    """(link, heads, hlo, hhi) for every block of the tiles, on their
+    device. A destination's RUN in a tile is its valid slots there, in slot
+    order; its HEAD is the run's first slot.
+
+    * ``link`` (n_tiles, TILE) int32: for a valid slot, the local index + 1
+      of the next slot of its run (0: none), or'ed with ``LINK_HEAD`` at a
+      head.
+    * ``heads`` (n_tiles * TILE,) int32: each vertex's head slots in tile
+      order, packed per block inside the block's own slot range (a block
+      has no more heads than valid slots).
+    * ``hlo``/``hhi`` (values_len,) int32: vertex v's heads are
+      ``heads[hlo[v]:hhi[v]]``."""
+    dev = dstl.device
+    link = torch.zeros(dstl.shape, dtype=torch.int32, device=dev)
+    heads = torch.zeros(dstl.numel(), dtype=torch.int32, device=dev)
+    hlo = torch.zeros(values_len, dtype=torch.int32, device=dev)
+    hhi = torch.zeros(values_len, dtype=torch.int32, device=dev)
+    blocks = torch.arange(tile_cnt.numel(), device=dev)
+    _fold_links(dstl, valid, tile_start, tile_cnt, block_size, blocks,
+                link, heads, hlo, hhi)
+    return link, heads, hlo, hhi
+
+
+def refresh_fold_metadata(ed, block_size: int, blocks) -> None:
+    """Recompute ``ed``'s fold metadata in place for the given blocks, after
+    their tile rows changed (streaming commits)."""
+    blocks = torch.as_tensor(np.asarray(blocks, dtype=np.int64)).to(
+        ed.src.device)
+    if blocks.numel():
+        _fold_links(ed.dstl, ed.valid, ed.tile_start, ed.tile_cnt,
+                    block_size, blocks, ed.link, ed.heads, ed.hlo, ed.hhi)
+
+
+def _fold_links(dstl, valid, tile_start, tile_cnt, c, blocks, link, heads,
+                hlo, hhi) -> None:
+    dev = dstl.device
+    ts = tile_start.long()[blocks]
+    tc = tile_cnt.long()[blocks]
+    nt = int(tc.sum())
+    # the blocks' tile rows, block by block
+    owner = torch.repeat_interleave(torch.arange(blocks.numel(), device=dev),
+                                    tc)
+    first_row = torch.cumsum(tc, 0) - tc
+    rows = ts[owner] + torch.arange(nt, device=dev) - first_row[owner]
+    if nt:  # the metadata is a function of the current tiles alone
+        link[rows] = 0
+        heads.view(-1, TILE)[rows] = 0
+    slots = (rows[:, None] * TILE
+             + torch.arange(TILE, device=dev)).reshape(-1)
+    blk = blocks[owner].repeat_interleave(TILE)
+    live = valid.reshape(-1)[slots]
+    slots, blk = slots[live], blk[live]
+    # sort the valid slots by (destination vertex, slot); slots ascend
+    key = blk * c + dstl.reshape(-1)[slots].long()
+    key, perm = torch.sort(key, stable=True)
+    slots, blk = slots[perm], blk[perm]
+    tile = slots // TILE
+    n = slots.numel()
+    same = (key[1:] == key[:-1]) & (tile[1:] == tile[:-1])
+    nxt = torch.zeros(n, dtype=torch.int64, device=dev)
+    nxt[:-1] = torch.where(same, slots[1:] % TILE + 1, 0)
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = ~same
+    link.view(-1)[slots] = (nxt | head.long() * LINK_HEAD).to(torch.int32)
+    hkey, hslot, hblk = key[head], slots[head], blk[head]
+    # each block's heads fill its own slot range from its first slot
+    area = tile_start.long()[hblk] * TILE
+    rank = torch.arange(hkey.numel(), device=dev) \
+        - torch.searchsorted(hkey, hblk * c)
+    heads[area + rank] = hslot.to(torch.int32)
+    verts = (blocks[:, None] * c + torch.arange(c, device=dev)).reshape(-1)
+    vblk = verts // c
+    start = tile_start.long()[vblk] * TILE - torch.searchsorted(hkey,
+                                                               vblk * c)
+    hlo[verts] = (start + torch.searchsorted(hkey, verts)).to(torch.int32)
+    hhi[verts] = (start + torch.searchsorted(hkey, verts, right=True)).to(
+        torch.int32)
+
+
+# -- wrappers ------------------------------------------------------------------
 def block_sweep(program, n_total: int, ed, values: torch.Tensor,
                 rows: torch.Tensor, ok: torch.Tensor, psd: torch.Tensor,
                 dmax: torch.Tensor, scratch: SweepScratch, *,
                 block_size: int, n_live: int, first: bool = True,
                 last: bool = True, out: torch.Tensor | None = None) -> None:
-    """One sweep pass over the slate ``rows``/``ok`` (int32/bool, (W,)).
+    """One unmasked sweep pass (kernel 1) over the slate ``rows``/``ok``
+    (int32/bool, (W,)).
 
     Every ok slot's block reads the snapshot ``values`` and writes its new
     values into ``out`` (default: ``values`` itself — the in-place update
     that replaces the reference's buffer donation). ``first``/``last`` mark
     the first and last of a hot slot's Gauss-Seidel passes (a one-slot
     slate): the first saves the block's values, the last writes ``psd`` and
-    ``dmax`` at the block's row against them. A one-pass sweep is both.
-    Nothing is read back to the host.
+    ``dmax`` ((P, 1)) at the block's row against them. A one-pass sweep is
+    both. Nothing is read back to the host.
     """
     if values.device.type == "cpu":
         return block_sweep_ref(program, n_total, ed, values, rows, ok, psd,
                                dmax, scratch, block_size=block_size,
                                n_live=n_live, first=first, last=last,
                                out=out)
+    _launch(program, n_total, ed, values, rows, ok, psd, dmax, scratch,
+            block_size, n_live, first, last, out, None)
+    block_sweep.launches += 1
+
+
+block_sweep.launches = 0
+
+
+def masked_block_sweep(program, n_total: int, ed, values: torch.Tensor,
+                       rows: torch.Tensor, ok: torch.Tensor,
+                       psd: torch.Tensor, dmax: torch.Tensor,
+                       scratch: SweepScratch, *, block_size: int,
+                       n_live: int, floor: float, first: bool = True,
+                       last: bool = True) -> None:
+    """One sub-block-masked sweep pass (kernel 1m), in place, over the
+    slate ``rows``/``ok``; ``psd``/``dmax`` are (P, S) with S =
+    ``ed.cov.shape[1]``.
+
+    Each slot's mask is ``psd[row] >= floor`` as it stands when the slot
+    starts: masked sub-ranges keep their values and their psd/dmax
+    entries, tiles whose ``ed.cov`` row covers only masked sub-ranges are
+    skipped, and the last pass writes per-sub-block mean and max deltas for
+    the active ones. A hot slot's passes leave its psd row alone until the
+    last one, so every pass derives the mask of the slot's entry.
+    """
+    if values.device.type == "cpu":
+        return block_sweep_ref(program, n_total, ed, values, rows, ok, psd,
+                               dmax, scratch, block_size=block_size,
+                               n_live=n_live, floor=floor, first=first,
+                               last=last)
+    _launch(program, n_total, ed, values, rows, ok, psd, dmax, scratch,
+            block_size, n_live, first, last, None, floor)
+    masked_block_sweep.launches += 1
+
+
+masked_block_sweep.launches = 0
+
+
+def _launch(program, n_total, ed, values, rows, ok, psd, dmax, scratch,
+            block_size, n_live, first, last, out, floor) -> None:
     out = values if out is None else out
+    masked = floor is not None
     nslots = rows.numel()
+    nsub = int(ed.cov.shape[1]) if masked else 1
     _check_cuda(ed, values, rows, ok, psd, dmax, scratch, out, block_size,
-                nslots, first, last)
+                nslots, first, last, nsub)
     lib = _lib()
     d, cst = program.kernel_consts(n_total)
     ub = int(scratch.tiles_ub[min(nslots, scratch.tiles_ub.size) - 1])
@@ -93,21 +239,26 @@ def block_sweep(program, n_total: int, ed, values: torch.Tensor,
     fold_threads = max(32, 1 << (block_size - 1).bit_length())
     stream = torch.cuda.current_stream(values.device).cuda_stream
     err = lib.block_sweep_launch(
-        ed.src.data_ptr(), ed.dstl.data_ptr(), ed.w.data_ptr(),
-        ed.valid.data_ptr(), values.data_ptr(), out.data_ptr(),
+        ed.src.data_ptr(), ed.w.data_ptr(), ed.valid.data_ptr(),
+        ed.link.data_ptr(), values.data_ptr(), out.data_ptr(),
         ed.aux.data_ptr(), ed.tile_start.data_ptr(), ed.tile_cnt.data_ptr(),
-        ed.vlo.data_ptr(), ed.vhi.data_ptr(), rows.data_ptr(), ok.data_ptr(),
+        ed.heads.data_ptr(), ed.hlo.data_ptr(), ed.hhi.data_ptr(),
+        rows.data_ptr(), ok.data_ptr(), ed.cov.data_ptr(),
         nslots, grid, fold_threads, block_size, n_live, program.kernel_id,
-        float(program.identity), d, cst, int(first), int(last),
+        int(masked), nsub,
+        float(program.identity), d, cst,
+        float(np.float32(floor)) if masked else 0.0,
+        int(first), int(last),
         scratch.part.data_ptr(), scratch.old.data_ptr(), psd.data_ptr(),
         dmax.data_ptr(), stream)
     if err:
         raise RuntimeError("block_sweep launch failed: "
                            + lib.block_sweep_error_string(err).decode())
-    block_sweep.launches += 1
 
 
-block_sweep.launches = 0
+def load_library() -> None:
+    """Build (at first use) and load the kernel's library."""
+    _lib()
 
 
 def _lib() -> ctypes.CDLL:
@@ -115,7 +266,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.block_sweep_launch.argtypes = (
-            [p] * 13 + [i] * 6 + [f] * 3 + [i] * 2 + [p] * 5)
+            [p] * 15 + [i] * 8 + [f] * 4 + [i] * 2 + [p] * 5)
         lib.block_sweep_launch.restype = i
         lib.block_sweep_error_string.argtypes = [i]
         lib.block_sweep_error_string.restype = ctypes.c_char_p
@@ -136,20 +287,28 @@ def _check_edge_data(scratch, block_size) -> None:
     _check_tensors([(scratch.part, torch.float32),
                     (scratch.old, torch.float32), (ed.src, torch.int32),
                     (ed.dstl, torch.int32), (ed.w, torch.float32),
-                    (ed.valid, torch.bool), (ed.aux, torch.float32),
-                    (ed.tile_start, torch.int32), (ed.tile_cnt, torch.int32),
-                    (ed.vlo, torch.int32), (ed.vhi, torch.int32)],
-                   ed.src.device)
+                    (ed.valid, torch.bool), (ed.cov, torch.bool),
+                    (ed.aux, torch.float32), (ed.tile_start, torch.int32),
+                    (ed.tile_cnt, torch.int32), (ed.link, torch.int32),
+                    (ed.heads, torch.int32), (ed.hlo, torch.int32),
+                    (ed.hhi, torch.int32)], ed.src.device)
     if ed.src.dim() != 2 or ed.src.shape[1] != TILE:
         raise ValueError(f"block_sweep: tiles must be (n_tiles, {TILE})")
+    if ed.src.numel() >= 2 ** 31:
+        raise ValueError("block_sweep: tile slots must fit int32")
+    if ed.link.shape != ed.src.shape or ed.heads.numel() != ed.src.numel() \
+            or ed.cov.dim() != 2 or ed.cov.shape[0] != ed.src.shape[0]:
+        raise ValueError("block_sweep: fold metadata or coverage shaped "
+                         "unlike the tiles")
     if not 1 <= block_size <= MAX_BLOCK:
         raise ValueError(f"block_sweep: block_size must be 1..{MAX_BLOCK}")
-    if ed.vlo.numel() < ed.tile_cnt.numel() * block_size:
-        raise ValueError("block_sweep: vertex slots must cover every block")
+    if ed.hlo.numel() < ed.tile_cnt.numel() * block_size \
+            or ed.hhi.numel() != ed.hlo.numel():
+        raise ValueError("block_sweep: vertex heads must cover every block")
 
 
 def _check_cuda(ed, values, rows, ok, psd, dmax, scratch, out, block_size,
-                nslots, first, last) -> None:
+                nslots, first, last, nsub) -> None:
     """Per-launch checks; the edge state was checked with its scratch."""
     if scratch.ed is not ed or scratch.old.numel() != block_size:
         raise ValueError("block_sweep: scratch built for other tiles")
@@ -161,10 +320,13 @@ def _check_cuda(ed, values, rows, ok, psd, dmax, scratch, out, block_size,
     if not 1 <= nslots <= MAX_SLOTS or ok.numel() != nslots:
         raise ValueError(f"block_sweep: 1..{MAX_SLOTS} slots with one ok "
                          f"flag each, got {nslots} and {ok.numel()}")
-    if values.numel() != ed.vlo.numel() or out.numel() != values.numel():
+    if values.numel() != ed.hlo.numel() or out.numel() != values.numel():
         raise ValueError("block_sweep: values must cover every block")
-    if psd.numel() != nblocks or dmax.numel() != nblocks:
-        raise ValueError("block_sweep: psd/dmax need one entry per block")
+    if psd.numel() != nblocks * nsub or dmax.numel() != nblocks * nsub:
+        raise ValueError(f"block_sweep: psd/dmax need {nsub} entries per "
+                         "block")
+    if block_size % nsub:
+        raise ValueError("block_sweep: sub-blocks must divide the block")
     if not (first and last) and nslots != 1:
         raise ValueError("block_sweep: multi-pass sweeps take one slot")
 
@@ -175,8 +337,8 @@ def _tile_partials(program, msg, valid, dl, c):
     the identity and combines d's messages in slot order, one
     ``full(identity).at[dstl].add(msg)`` per tile. ``index_add_`` on the CPU
     adds in index order, which is slot order, as the kernel's tile pass
-    does; min/max are exact in any order. Slots that are not valid carry
-    the identity."""
+    does whatever the layout; min/max are exact in any order. Slots that
+    are not valid carry the identity."""
     n_t = msg.shape[0]
     ident = float(program.identity)
     msg = torch.where(valid, msg, ident).reshape(-1)
@@ -205,22 +367,35 @@ def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
 def block_sweep_ref(program, n_total: int, ed, values: torch.Tensor,
                     rows: torch.Tensor, ok: torch.Tensor, psd: torch.Tensor,
                     dmax: torch.Tensor, scratch: SweepScratch, *,
-                    block_size: int, n_live: int, first: bool = True,
+                    block_size: int, n_live: int,
+                    floor: float | None = None, first: bool = True,
                     last: bool = True, out: torch.Tensor | None = None
                     ) -> None:
-    """Plain PyTorch version of :func:`block_sweep`, with the same
-    signature and in-place effects; it repeats the kernel's arithmetic in
-    the kernel's order. It reads its arguments back to the host freely:
-    it serves CPU tensors, the tests and chip_smoke.py."""
+    """Plain PyTorch version of :func:`block_sweep` (``floor=None``) and of
+    :func:`masked_block_sweep` (``floor`` given), with the same signatures
+    and in-place effects; it repeats the kernel's arithmetic in the
+    kernel's order on any tile layout. It reads its arguments back to the
+    host freely: it serves CPU tensors, the tests and chip_smoke.py."""
     out = values if out is None else out
     c, dev = block_size, values.device
+    nsub = 1 if floor is None else int(ed.cov.shape[1])
+    sub = c // nsub
+    psd2, dmax2 = psd.view(-1, nsub), dmax.view(-1, nsub)
     slots = [int(r) for r, k in zip(rows.tolist(), ok.tolist()) if k]
     if not slots:
         return
+    # each slot's mask, from its psd row as it stands at the slot's entry
+    acts = [torch.ones(1, dtype=torch.bool, device=dev) if floor is None
+            else psd2[r] >= float(np.float32(floor)) for r in slots]
     starts = ed.tile_start.tolist()
     cnts = ed.tile_cnt.tolist()
-    tiles = torch.cat([torch.arange(starts[r], starts[r] + cnts[r])
-                       for r in slots]).to(dev)
+    runs = []
+    for r, act in zip(slots, acts):
+        t = torch.arange(starts[r], starts[r] + cnts[r], device=dev)
+        if floor is not None:  # skip tiles that cover only masked ranges
+            t = t[(ed.cov[t] & act).any(dim=1)]
+        runs.append(t)
+    tiles = torch.cat(runs)
     src = ed.src[tiles].long()
     msg = program.edge_map(values[src], ed.aux[src], ed.w[tiles])
     part = _tile_partials(program, msg, ed.valid[tiles],
@@ -232,27 +407,31 @@ def block_sweep_ref(program, n_total: int, ed, values: torch.Tensor,
     fold = {"sum": np.add, "min": np.minimum, "max": np.maximum}[
         program.combine]
     aggs, at = [], 0
-    for r in slots:
-        run = part[at:at + cnts[r]]
-        at += cnts[r]
-        aggs.append(fold.accumulate(run, axis=0)[-1] if cnts[r]
+    for t in runs:
+        run = part[at:at + t.numel()]
+        at += t.numel()
+        aggs.append(fold.accumulate(run, axis=0)[-1] if t.numel()
                     else np.full(c, program.identity, np.float32))
     aggs = torch.from_numpy(np.stack(aggs)).to(dev)
     news = []
-    for agg, r in zip(aggs, slots):
+    for agg, r, act in zip(aggs, slots, acts):
         base = r * c
         old = values[base:base + c].clone()
         live = (base + torch.arange(c, device=dev)) < n_live
-        new = torch.where(live, program.apply(old, agg, n_total), old)
-        news.append((r, old, new, live))
-    for r, old, new, live in news:  # every slot read the snapshot first
+        keep = live & act.repeat_interleave(sub)
+        new = torch.where(keep, program.apply(old, agg, n_total), old)
+        news.append((r, old, new, live, keep, act))
+    for r, old, new, live, keep, act in news:  # every slot read first
         if first and not last:
             scratch.old.copy_(old)
         out[r * c:(r + 1) * c] = new
         if last:
             old0 = old if first else scratch.old
-            delta = torch.where(live, program.sd_delta(old0, new),
+            delta = torch.where(keep, program.sd_delta(old0, new),
                                 torch.zeros_like(new))
-            cnt = torch.tensor(float(max(int(live.sum()), 1)), device=dev)
-            psd.view(-1)[r] = pairwise_sum(delta) / cnt
-            dmax.view(-1)[r] = delta.max()
+            for s in torch.nonzero(act).view(-1).tolist():
+                seg = slice(s * sub, (s + 1) * sub)
+                cnt = max(int(live[seg].sum()), 1)
+                psd2[r, s] = pairwise_sum(delta[seg]) / torch.tensor(
+                    float(cnt), device=dev)
+                dmax2[r, s] = delta[seg].max()

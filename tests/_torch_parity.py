@@ -11,14 +11,17 @@ from repro_torch.interop import engine_from_arrays
 
 def reference_arrays(eng) -> dict:
     """The reference StructureAwareEngine's state, as the arrays
-    ``repro_torch.interop.engine_from_arrays`` takes."""
-    p, u = eng.plan, eng.plan.unified
+    ``repro_torch.interop.engine_from_arrays`` takes: its live edge state
+    (the build-time tiles, or the mutated ones after streaming ingests)."""
+    p, u, ed = eng.plan, eng.plan.unified, eng.edge_state
     is_hot = np.zeros(p.num_blocks, dtype=bool)
     is_hot[:p.barrier_block] = True
-    return dict(order=p.order, inv=p.inv, n_live=p.n_live, src=u.src,
-                dst_local=u.dst_local, w=u.w, valid=u.valid,
-                tile_start=u.tile_start, tile_cnt=u.tile_cnt, edges=u.edges,
-                values0=np.asarray(eng.values0), aux=np.asarray(eng.aux),
+    return dict(order=p.order, inv=p.inv, n_live=p.n_live,
+                src=np.asarray(ed.src), dst_local=np.asarray(ed.dstl),
+                w=np.asarray(ed.w), valid=np.asarray(ed.valid),
+                cov=np.asarray(ed.cov), tile_start=u.tile_start,
+                tile_cnt=u.tile_cnt, edges=np.asarray(eng.edge_counts),
+                values0=np.asarray(eng.values0), aux=np.asarray(ed.aux),
                 coupling=np.asarray(eng._coupling), is_hot=is_hot)
 
 
@@ -34,3 +37,73 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def emulate_kernel(program, n_total, ed, values, rows, ok, psd, dmax, *,
+                   block_size, n_live, floor=None):
+    """A one-pass sweep re-enacted in numpy the way csrc/block_sweep.cu
+    runs it: the tile pass walks each run's ``link`` chain from its head
+    and stores the partial at the head's slot; the fold adds each vertex's
+    partials through ``heads[hlo:hhi]``; the masked form skips tiles by
+    ``cov`` and keeps masked sub-ranges. The CUDA kernel cannot run on the
+    CPU, so this holds its order and its fold metadata against
+    ``block_sweep_ref`` on any layout. In place, like the kernel."""
+    from repro_torch.kernels import block_sweep as kb
+    c = block_size
+    nsub = 1 if floor is None else int(ed.cov.shape[1])
+    sub = c // nsub
+    ident = np.float32(program.identity)
+    merge = {"sum": lambda a, b: np.float32(a + b),
+             "min": lambda a, b: min(a, b),
+             "max": lambda a, b: max(a, b)}[program.combine]
+    src = ed.src.numpy().reshape(-1)
+    w = ed.w.numpy().reshape(-1)
+    valid = ed.valid.numpy().reshape(-1)
+    link = ed.link.numpy().reshape(-1)
+    heads, hlo, hhi = ed.heads.numpy(), ed.hlo.numpy(), ed.hhi.numpy()
+    cov = ed.cov.numpy()
+    ts, tc = ed.tile_start.numpy(), ed.tile_cnt.numpy()
+    psd2, dmax2 = psd.view(-1, nsub), dmax.view(-1, nsub)
+    slots = [int(r) for r, k in zip(rows.tolist(), ok.tolist()) if k]
+    acts = {r: (np.ones(1, bool) if floor is None
+                else psd2[r].numpy() >= np.float32(floor)) for r in slots}
+    part = np.zeros(src.size, np.float32)
+    for r in slots:  # launch 1: the tile pass
+        for t in range(ts[r], ts[r] + tc[r]):
+            if floor is not None and not (cov[t] & acts[r]).any():
+                continue
+            e = t * kb.TILE + np.arange(kb.TILE)
+            m = program.edge_map(values[torch.from_numpy(src[e]).long()],
+                                 ed.aux[torch.from_numpy(src[e]).long()],
+                                 torch.from_numpy(w[e])).numpy()
+            heads_at = valid[e] & ((link[e] & kb.LINK_HEAD) > 0)
+            for j in np.flatnonzero(heads_at):
+                acc = merge(ident, m[j])
+                k = link[e[j]] & kb.LINK_NEXT
+                while k:
+                    acc = merge(acc, m[k - 1])
+                    k = link[e[k - 1]] & kb.LINK_NEXT
+                part[e[j]] = acc
+    news = []
+    for r in slots:  # launch 2: the fold, one block per slot
+        base = r * c
+        live = base + np.arange(c) < n_live
+        keep = live & np.repeat(acts[r], sub)
+        agg = np.full(c, ident, np.float32)
+        for i in np.flatnonzero(keep):
+            for h in heads[hlo[base + i]:hhi[base + i]]:
+                agg[i] = merge(agg[i], part[h])
+        old = values[base:base + c].clone()
+        new = torch.where(torch.from_numpy(keep), program.apply(
+            old, torch.from_numpy(agg), n_total), old)
+        news.append((r, old, new, live, keep))
+    for r, old, new, live, keep in news:
+        values[r * c:(r + 1) * c] = new
+        delta = torch.where(torch.from_numpy(keep),
+                            program.sd_delta(old, new), 0.0)
+        for s in np.flatnonzero(acts[r]):
+            seg = slice(s * sub, (s + 1) * sub)
+            cnt = max(int(live[seg].sum()), 1)
+            psd2[r, s] = kb.pairwise_sum(delta[seg]) / torch.tensor(
+                float(cnt))
+            dmax2[r, s] = delta[seg].max()

@@ -68,3 +68,104 @@ def test_run_on_card_matches_cpu(card, prog):
     base = BaselineEngine(g, program, CFG).run()
     base_cpu = BaselineEngine(g, program, CFG, device="cpu").run()
     assert np.array_equal(base.values, base_cpu.values)
+
+
+def _slate_vs_plain(program, n_total, ed, c, n_live, values, rows, ok, psd0,
+                    floor=None, depth=1):
+    """One slate through the kernel on the card and through the plain
+    version on CPU copies of the same inputs; returns both results."""
+    ed_cpu = type(ed)(*(t.cpu() for t in ed))
+    out = []
+    for dev, e in (("cuda", ed), ("cpu", ed_cpu)):
+        v = torch.from_numpy(values.copy()).to(dev)
+        p = torch.from_numpy(psd0.copy()).to(dev)
+        d = torch.full(psd0.shape, -1.0, device=dev)
+        sc = kb.make_scratch(e, c)
+        r, k = torch.from_numpy(rows).to(dev), torch.from_numpy(ok).to(dev)
+        for i in range(depth):
+            kw = dict(block_size=c, n_live=n_live, first=i == 0,
+                      last=i == depth - 1)
+            if dev == "cpu":
+                kb.block_sweep_ref(program, n_total, e, v, r, k, p, d, sc,
+                                   floor=floor, **kw)
+            elif floor is None:
+                kb.block_sweep(program, n_total, e, v, r, k, p, d, sc, **kw)
+            else:
+                kb.masked_block_sweep(program, n_total, e, v, r, k, p, d, sc,
+                                      floor=floor, **kw)
+        out.append((v.cpu(), p.cpu(), d.cpu()))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("prog", ["pagerank", "sssp", "bfs", "cc"])
+def test_masked_kernel_matches_plain(card, prog):
+    cfg = EngineConfig(block_size=128, width=8, t2=1e-9, subblocks=4)
+    eng = StructureAwareEngine(_graph(prog), A.REGISTRY[prog](), cfg)
+    P, c = eng.plan.num_blocks, cfg.block_size
+    rng = np.random.default_rng(1)
+    floor = np.float32(eng._psd_floor())
+    values = rng.uniform(0.0, 1e-3, eng._values_len).astype(np.float32)
+    psd0 = np.where(rng.random((P, 4)) < 0.5, 1.0, floor / 2).astype(
+        np.float32)
+    ok = rng.random(P) < 0.7
+    # a cold slate of every block, then one-slot hot chains of 3 passes
+    slates = [(np.arange(P, dtype=np.int32), ok, 1)] + [
+        (np.array([b], np.int32), np.ones(1, bool), 3)
+        for b in rng.choice(P, 6, replace=False)]
+    for rows, k, depth in slates:
+        gpu, cpu = _slate_vs_plain(eng.program, eng.plan.graph.n,
+                                   eng.edge_state, c, eng.plan.n_live,
+                                   values, rows, k, psd0, floor, depth)
+        for a, b in zip(gpu, cpu):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("algo", ["pagerank", "cc"])
+def test_kernels_on_mutated_layout_match_plain(card, algo):
+    """Kernel 1 and 1m against the plain version on a streaming engine's
+    tiles after appends and kills (PageRank) or rebuilt runs (CC), for a
+    sum, a min and a max program over the same tiles."""
+    from repro_torch.stream import StreamingEngine, synthetic_stream
+    g = G.powerlaw_graph(6000, 8, seed=3)
+    cfg = EngineConfig(block_size=128, width=8, t2=1e-9, subblocks=4)
+    se = StreamingEngine(g, A.REGISTRY[algo](), cfg)
+    reports = [se.ingest(b) for b in synthetic_stream(g, 2, 400, seed=5,
+                                                      delete_frac=0.4)]
+    assert sum(r.rebuilt_blocks if algo == "cc" else r.appended_blocks
+               for r in reports) > 0
+    eng = se.engine
+    ed, c, P = eng.edge_state, cfg.block_size, eng.plan.num_blocks
+    ed = ed._replace(aux=torch.rand(ed.aux.numel(), device="cuda") + 1.0)
+    rng = np.random.default_rng(2)
+    values = rng.uniform(0.0, 1e-3, eng._values_len).astype(np.float32)
+    rows, ok = np.arange(P, dtype=np.int32), np.ones(P, bool)
+    for prog in (A.pagerank(), A.sssp(0), A.cc()):
+        for floor, nsub in ((None, 1), (np.float32(1e-6), 4)):
+            psd0 = np.where(rng.random((P, nsub)) < 0.6, 1.0, 0.0).astype(
+                np.float32)
+            gpu, cpu = _slate_vs_plain(prog, eng.plan.graph.n, ed, c,
+                                       eng.plan.n_live, values, rows, ok,
+                                       psd0, floor)
+            for a, b in zip(gpu, cpu):
+                assert torch.equal(a, b), (algo, prog.combine, nsub)
+
+
+@pytest.mark.parametrize("algo", ["pagerank", "sssp"])
+def test_stream_on_card_matches_cpu(card, algo):
+    from repro_torch.stream import StreamingEngine, synthetic_stream
+    g = G.powerlaw_graph(6000, 8, seed=4, weighted=algo == "sssp")
+    cfg = EngineConfig(block_size=128, width=8, t2=1e-9, subblocks=4)
+    batches = synthetic_stream(g, 3, 200, seed=6, delete_frac=0.3,
+                               weighted=algo == "sssp")
+    gpu = StreamingEngine(g, A.REGISTRY[algo](), cfg)
+    cpu = StreamingEngine(g, A.REGISTRY[algo](), cfg, device="cpu")
+    kb.masked_block_sweep.launches = 0
+    for b in batches:
+        rg, rc = gpu.ingest(b), cpu.ingest(b)
+        assert np.array_equal(gpu.values, cpu.values)
+        assert (rg.iterations, rg.bytes_uploaded, rg.dirty_subblocks) == \
+            (rc.iterations, rc.bytes_uploaded, rc.dirty_subblocks)
+    assert kb.masked_block_sweep.launches > 0
+    for a, b in zip(gpu.engine.edge_state, cpu.engine.edge_state):
+        assert torch.equal(a.cpu(), b)

@@ -113,18 +113,25 @@ def test_non_adaptive_engine_matches_reference():
 
 
 def test_later_slices_raise():
+    """What belongs to later slices raises; sub-blocks and warm starts
+    (this slice) run."""
+    from repro_torch.stream import StreamingEngine
     tg = TG.powerlaw_graph(300, 3, seed=0)
-    with pytest.raises(NotImplementedError, match="sub-block"):
-        TEngine(tg, TA.sssp(), TConfig(block_size=64, subblocks=4),
-                device="cpu")
     with pytest.raises(NotImplementedError, match="out-of-core"):
         TEngine(tg, TA.sssp(), TConfig(block_size=64, resident_blocks=3),
                 device="cpu")
-    eng = TEngine(tg, TA.sssp(), TConfig(block_size=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="streaming"):
-        eng.run(warm=object())
+    eng = TEngine(tg, TA.sssp(), TConfig(block_size=64, subblocks=4),
+                  device="cpu")
     with pytest.raises(NotImplementedError, match="tracing"):
         eng.run(trace=True)
+    se = StreamingEngine(tg, TA.sssp(), TConfig(block_size=64),
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="serving"):
+        se.snapshot()
+    with pytest.raises(NotImplementedError, match="out-of-core"):
+        se.save_epoch("unused")
+    with pytest.raises(NotImplementedError, match="out-of-core"):
+        StreamingEngine.restore("unused", TA.sssp())
     assert "use_pallas" not in {f.name for f in
                                 dataclasses.fields(TConfig)}
 

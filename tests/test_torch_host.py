@@ -3,6 +3,7 @@ graph generators, degrees, the partition plan and its tiled storage,
 repartition decisions, the scheduler, and the small helpers."""
 import numpy as np
 import pytest
+import torch
 from _torch_parity import one_torch_thread  # noqa: F401
 
 from repro.core import degrees as JD
@@ -103,25 +104,56 @@ def test_tiled_storage_slack_equal():
 
 
 def test_vertex_slots_cover_each_vertex():
-    """The fold's slot ranges hold exactly each vertex's in-edges."""
+    """The fold's metadata reaches exactly each vertex's in-edge slots: the
+    runs walked from a vertex's heads, through the links, are its valid
+    slots, one run per tile in tile order. On the build-time (CSC) layout
+    a vertex's heads are its first slot and then the start of every later
+    tile it spans; a layout with each tile's destinations reversed (no
+    longer in destination order) is covered as well."""
+    from repro_torch.kernels import block_sweep as kb
     _, tg = _pair("core_periphery")
     plan = TP.build_plan(tg, block_size=64)
     u = plan.unified
     n_pad = plan.num_blocks * 64
-    vlo, vhi = TE.vertex_slots(u, 64, n_pad)
     indeg = np.pad(plan.graph.in_deg, (0, n_pad - plan.graph.n))
-    assert np.array_equal(vhi - vlo, indeg)
-    block_of_tile = np.repeat(np.arange(plan.num_blocks), u.tile_cnt)
-    for v in np.flatnonzero(indeg)[::37]:
-        s = np.arange(vlo[v], vhi[v])
-        t, j = s // TP.TILE, s % TP.TILE
-        assert u.valid[t, j].all()
-        assert np.all(block_of_tile[t] * 64 + u.dst_local[t, j] == v)
     bad = TP.TiledStorage(src=u.src, dst_local=u.dst_local[:, ::-1].copy(),
-                          w=u.w, valid=u.valid, tile_start=u.tile_start,
-                          tile_cnt=u.tile_cnt, edges=u.edges)
-    with pytest.raises(ValueError):
-        TE.vertex_slots(bad, 64, n_pad)
+                          w=u.w, valid=u.valid[:, ::-1].copy(),
+                          tile_start=u.tile_start, tile_cnt=u.tile_cnt,
+                          edges=u.edges)
+    block_of_tile = np.repeat(np.arange(plan.num_blocks), u.tile_cnt)
+    for store in (u, bad):
+        link, heads, hlo, hhi = (t.numpy() for t in kb.fold_metadata(
+            *(torch.as_tensor(a) for a in (
+                store.dst_local, store.valid, store.tile_start,
+                store.tile_cnt)), 64, n_pad))
+        link = link.reshape(-1)
+        dst = (block_of_tile[:, None] * 64 + store.dst_local).reshape(-1)
+        valid = store.valid.reshape(-1)
+        walked = np.zeros(valid.size, int)
+        for v in range(n_pad):
+            hs = heads[hlo[v]:hhi[v]]
+            assert np.all(np.diff(hs // TP.TILE) > 0)  # one run per tile
+            for h in hs:
+                assert link[h] & kb.LINK_HEAD
+                e = h
+                while True:
+                    assert valid[e] and dst[e] == v
+                    walked[e] += 1
+                    k = link[e] & kb.LINK_NEXT
+                    if not k:
+                        break
+                    assert k - 1 > e % TP.TILE  # forward, in slot order
+                    e = e - e % TP.TILE + k - 1
+        assert np.array_equal(walked, valid.astype(int))
+        assert np.bincount(dst[valid], minlength=n_pad).tolist() == \
+            indeg.tolist()
+        if store is u:
+            for v in np.flatnonzero(indeg)[::37]:
+                s0 = int(np.flatnonzero(valid & (dst == v))[0])
+                last = int(np.flatnonzero(valid & (dst == v))[-1])
+                want = [s0] + list(range((s0 // TP.TILE + 1) * TP.TILE,
+                                         last + 1, TP.TILE))
+                assert heads[hlo[v]:hhi[v]].tolist() == want
 
 
 def test_repartition_decisions_equal():

@@ -65,6 +65,15 @@ def test_kernel_tile_is_the_layout_tile():
     assert KERNEL_TILE == TILE and f"#define TILE {TILE}" in src
 
 
+def test_kernel_link_bits_are_the_source_bits():
+    from repro_torch.kernels import block_sweep as kb
+    src = (PKG / "csrc" / "block_sweep.cu").read_text()
+    assert f"#define LINK_NEXT {kb.LINK_NEXT:#x}" in src
+    assert f"#define LINK_HEAD {kb.LINK_HEAD:#x}" in src
+    assert f"#define MAX_SLOTS {kb.MAX_SLOTS}" in src
+    assert f"#define MAX_BLOCK {kb.MAX_BLOCK}" in src
+
+
 def test_default_device_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = TG.powerlaw_graph(200, 3, seed=0)
@@ -72,9 +81,14 @@ def test_default_device_needs_a_card(monkeypatch):
         StructureAwareEngine(g, TA.pagerank())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BaselineEngine(g, TA.pagerank())
-    from repro_torch import quickstart
+    from repro_torch import quickstart, streaming_graph
+    from repro_torch.stream import StreamingEngine
     with pytest.raises(RuntimeError, match="no CUDA device"):
         quickstart.main(["--n", "300"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingEngine(g, TA.pagerank())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        streaming_graph.main(["--n", "300"])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
