@@ -23,12 +23,22 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       on powerlaw_graph(n = 2^18): the engine bootstraps with a cold run,
       and a CC run at n = 2^21 would not fit the time limit beside phases
       3-4.
+   d. Kernels 1l and 1lm (the lane sweep of query serving) at L = 8 lanes
+      on the phase-3 graphs: the k_sssp arithmetic on the SSSP graph, held
+      against the plain version on the card (min is exact in any order),
+      and the k_ppr arithmetic on the PageRank graph, held against the
+      plain version on CPU copies (its sum order is the CPU's index_add_).
+      1lm runs over S = 8 coverage with seeded (P, S, L) psd and two lanes
+      done. A one-lane k_sssp sweep must equal kernel 1's sssp sweep
+      bitwise.
    Then the times of one full cold sweep of every block (kernel, plain
    version on the card, and a library yardstick that the port never calls)
    beside the least time the card could take for it: kernel 1, kernel 1m
-   with every sub-block live and with about 1/S live, and kernel 1 on the
+   with every sub-block live and with about 1/S live, kernel 1 on the
    mutated layout of 2c against the same engine's build-time layout
-   (timed before the batch).
+   (timed before the batch), and kernels 1l/1lm at L = 8 (k_sssp on the
+   SSSP graph, 1lm with every sub-block live and about 1/S live). The
+   bound counts aux and vconst only for the programs that read them.
 3. The main path at n = 2^21 vertices, avg_deg 16 (~33.5M edges):
    PageRank on core_periphery_graph(seed=1, chords=1) and SSSP on a
    weighted powerlaw_graph, each through StructureAwareEngine.run() and
@@ -48,7 +58,29 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    prints its iterations, dirty fractions, upload fraction, bytes and
    latency, and the launches of kernels 1 and 1m; the masked kernel must
    have launched.
-5. One JSON line of kernel rows, the card line, and the final ok line.
+5. Query serving through the lane kernels (QueryService, LaneEngine). In
+   each phase the first wave of queries is submitted, one synthetic_stream
+   batch of 200 edits with 20% deletes is ingested while they pend, and
+   run_pending() must answer every query on its pinned (pre-ingest) epoch;
+   every lane must converge.
+   a. Kernel 1l: the reference demo's configuration (a PageRank
+      StreamingEngine, S = 1, block 512, t2 = 1e-8) at the smoke's width
+      128 on phase 3's weighted powerlaw_graph(2^21), served by
+      QueryService(max_lanes=8): 8 PPR queries (seeded 2-vertex reset
+      sets), held within rtol=1e-3, atol=1e-6 of a power iteration on the
+      card over the unmutated graph. The demo's SSSP queries run in 5b:
+      an SSSP lane batch at n = 2^21 takes ~9,400 supersteps (200-260 s
+      on the card), more than the time limit leaves.
+   b. Kernel 1lm: QueryService(max_lanes=8) over phase 4's SSSP stream
+      (n = 2^19, S = 8, after its batches): an SSSP batch and a BFS batch
+      on the pinned epoch, then an SSSP wave on the epoch after the ingest,
+      each bitwise equal to Bellman-Ford on the card over its epoch's
+      graph (float path sums are order-fixed, so the fixpoint is unique).
+   Each batch prints its family, lanes, supersteps (batch and per lane),
+   run and wait seconds, host syncs, lane-kernel launches and counters;
+   each phase its pin's host copy time, snapshots_preserved,
+   stale_answers and queries/s. The lane kernels must have launched.
+6. One JSON line of kernel rows, the card line, and the final ok line.
 
 It needs the repository's src/ beside it, and a CUDA card: without either it
 exits non-zero before printing any result.
@@ -79,6 +111,9 @@ MUTATE_EDITS = 10000
 SSSP_STREAM_N = 1 << 19  # phase 4's SSSP stream
 STREAM_CAP = 8000  # superstep cap of one streaming run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+LANES = 8  # query lanes per batch (phase 2d and the serving phases)
+SERVE_T2 = 1e-8  # the reference demo's (examples/graph_service.py)
+SERVE_CAP = 20000  # superstep cap of one lane batch
 SEED = 0
 DEV = "cuda"
 
@@ -99,11 +134,13 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     """Mean milliseconds of ``fn`` on the card over ``reps`` runs, after one
-    warm-up run, by CUDA events."""
+    warm-up run (unless ``warmup`` is off: the plain versions, seconds
+    long, run once), by CUDA events."""
     import torch
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -248,7 +285,7 @@ def time_full_sweep(label, program, ed, c, n_live, n_total, values0,
             sweep(program, n_total, ed, values, rows, ok, psd, dmax, sc,
                   plain=plain, out=out, **args)
     ms = cuda_ms(run, 20)
-    plain_ms = cuda_ms(lambda: run(plain=True), 1)
+    plain_ms = cuda_ms(lambda: run(plain=True), 1, warmup=False)
     # the work this mask needs: tiles that feed an active sub-range, and
     # the vertices of the active sub-ranges
     valid = ed.valid
@@ -266,9 +303,10 @@ def time_full_sweep(label, program, ed, c, n_live, n_total, values0,
     n_pad = values.numel()
     n_out = int(vert_act.sum())
     # each input read once, each output written once: the needed tile slots
-    # (4 B src + 4 B w + 1 B valid + 4 B link), values and aux in, the
-    # active values out, psd and dmax out
-    nbytes = m * 13 + n_pad * 4 + n_total * 4 + n_out * 4 + P * nsub * 8
+    # (4 B src + 4 B w + 1 B valid + 4 B link), values in, aux in where the
+    # program's edge_map reads it, the active values out, psd and dmax out
+    aux_bytes = n_total * 4 if program.aux_fn is not None else 0
+    nbytes = m * 13 + n_pad * 4 + aux_bytes + n_out * 4 + P * nsub * 8
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     # library yardstick (timed here only): gather + map + scatter-reduce
     # over the edges the mask needs
@@ -316,6 +354,388 @@ def sub_mask_psd(rng, P, nsub, floor, live_frac):
                     np.float32(floor) / 2).astype(np.float32)
 
 
+def lane_sweep(program, n_total, ed, values, vconst, rows, ok, psd, dmax,
+               lane_done, sc, *, floor, plain=False, **kw):
+    """One pass of kernel 1l (floor None) or 1lm, or of their plain
+    version."""
+    from repro_torch.kernels import block_sweep as kb
+    args = (program, n_total, ed, values, vconst, rows, ok, psd, dmax,
+            lane_done, sc)
+    if plain:
+        kb.lane_block_sweep_ref(*args, floor=floor, **kw)
+    elif floor is None:
+        kb.lane_block_sweep(*args, **kw)
+    else:
+        kb.masked_lane_block_sweep(*args, floor=floor, **kw)
+
+
+def lane_state(program, n_pad, rng):
+    """(values, vconst) of LANES lanes with every kind of entry a lane sweep
+    meets mid-run: distances and unreached vertices, or personalized ranks
+    with sparse restart vectors."""
+    import numpy as np
+    if program.uses_vconst:
+        v = rng.uniform(0.0, 2e-6, (n_pad, LANES)).astype(np.float32)
+        vc = np.where(rng.random((n_pad, LANES)) < 1e-5,
+                      rng.uniform(0.0, 1.0, (n_pad, LANES)), 0.0)
+        return v, vc.astype(np.float32)
+    v = np.where(rng.random((n_pad, LANES)) < 0.4, np.float32(1e18),
+                 rng.uniform(0.0, 30.0, (n_pad, LANES))).astype(np.float32)
+    return v, np.zeros_like(v)
+
+
+def check_lanes_against_plain(label, program, ed, c, n_live, n_total,
+                              values, vconst, rng, plain_dev, floor=None,
+                              psd0=None, lane_done=None):
+    """Phase 2d: the lane kernel on the card against its plain version on
+    ``plain_dev`` (the card for min arithmetic, exact in any order; CPU
+    copies for sums, whose plain order is the CPU's index_add_), for the
+    hub block plus 64 seeded random blocks, as one slate at depth 1 and as
+    one-slot chains at depth 8. Returns the largest absolute difference of
+    the new values."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import block_sweep as kb
+    tile_cnt = ed.tile_cnt.cpu().numpy()
+    P, L = tile_cnt.size, values.shape[1]
+    nsub = 1 if floor is None else int(ed.cov.shape[1])
+    if psd0 is None:
+        psd0 = np.zeros((P, nsub, L), np.float32)
+    if lane_done is None:
+        lane_done = np.zeros(L, bool)
+    t0 = time.perf_counter()
+    hub = int(np.argmax(tile_cnt))
+    others = rng.choice(np.setdiff1d(np.arange(P), [hub]), size=64,
+                        replace=False)
+    blocks = np.concatenate([[hub], others]).astype(np.int32)
+    eds = {DEV: ed}
+    if plain_dev == "cpu":
+        eds["cpu"] = type(ed)(*(t.cpu() for t in ed))
+    runs = [(DEV, False), (plain_dev, True)]
+    args = dict(block_size=c, n_live=n_live, floor=floor)
+    worst = 0.0
+    same = total = 0
+
+    def compare(what, g, h):
+        nonlocal worst, same, total
+        for a, b, part in zip(g, h, ("values", "psd", "dmax")):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            if part == "values":
+                worst = max(worst, float(np.max(np.abs(a - b))))
+                same += int((a == b).sum())
+                total += a.size
+            if program.combine == "sum":
+                if not np.allclose(a, b, rtol=1e-6, atol=0):
+                    fail(f"{label} {what}: kernel {part} off plain by more "
+                         "than rtol=1e-6")
+            elif not np.array_equal(a, b):
+                fail(f"{label} {what}: kernel {part} not bitwise plain")
+
+    def fresh(dev):
+        return (torch.from_numpy(values.copy()).to(dev),
+                torch.from_numpy(vconst).to(dev),
+                torch.from_numpy(psd0.copy()).to(dev),
+                torch.zeros(P, nsub, L, device=dev),
+                torch.from_numpy(lane_done).to(dev),
+                kb.make_lane_scratch(eds[dev], c, L))
+
+    out = []
+    for dev, plain in runs:  # depth 1: one slate
+        v, vc, p, d, ld, sc = fresh(dev)
+        lane_sweep(program, n_total, eds[dev], v, vc,
+                   torch.from_numpy(blocks).to(dev),
+                   torch.ones(blocks.size, dtype=torch.bool, device=dev), p,
+                   d, ld, sc, plain=plain, **args)
+        out.append((v, p, d))
+    torch.cuda.synchronize()
+    compare("depth 1", *out)
+    out = []
+    for dev, plain in runs:  # depth 8: one-slot chains
+        v, vc, p, d, ld, sc = fresh(dev)
+        k = torch.ones(1, dtype=torch.bool, device=dev)
+        for b in blocks:
+            r = torch.tensor([b], dtype=torch.int32, device=dev)
+            for i in range(8):
+                lane_sweep(program, n_total, eds[dev], v, vc, r, k, p, d, ld,
+                           sc, plain=plain, first=i == 0, last=i == 7,
+                           **args)
+        out.append((v, p, d))
+    torch.cuda.synchronize()
+    compare("depth 8", *out)
+    log(f"[kernel] {label}: kernel vs plain ({plain_dev}) on hub block {hub} "
+        f"({int(tile_cnt[hub])} tiles) + 64 blocks, L={L}, depth 1 and 8: "
+        f"bitwise share {same}/{total}, max_abs_err {worst!r} (in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def time_lane_sweep(label, program, ed, c, n_live, n_total, values0,
+                    vconst, floor=None, psd0=None, lane_done=None):
+    """Phase 2d timings: one cold lane sweep of every block from one
+    snapshot, by the kernel, the plain version on the card and a library
+    yardstick, beside the least time the card could take for the work."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import block_sweep as kb
+    P = ed.tile_cnt.numel()
+    L = values0.shape[1]
+    masked = floor is not None
+    nsub = int(ed.cov.shape[1]) if masked else 1
+    values = torch.as_tensor(values0).to(DEV)
+    vc = torch.as_tensor(vconst).to(DEV)
+    p0 = torch.as_tensor(psd0 if masked else
+                         np.zeros((P, 1, L), np.float32)).to(DEV)
+    psd = p0.clone()
+    dmax = torch.zeros_like(p0)
+    ld = torch.as_tensor(lane_done if lane_done is not None
+                         else np.zeros(L, bool)).to(DEV)
+    rows = torch.arange(P, dtype=torch.int32, device=DEV)
+    ok = torch.ones(P, dtype=torch.bool, device=DEV)
+    sc = kb.make_lane_scratch(ed, c, L)
+    args = dict(block_size=c, n_live=n_live, floor=floor)
+
+    # the sweep is in place; its work does not depend on the values, only
+    # on the mask, so each run restores the psd (P*S*L*4 B) and no values
+    def run(plain=False):
+        psd.copy_(p0)
+        lane_sweep(program, n_total, ed, values, vc, rows, ok, psd, dmax, ld,
+                   sc, plain=plain, **args)
+    ms = cuda_ms(run, 20)
+    plain_ms = cuda_ms(lambda: run(plain=True), 1, warmup=False)
+    valid = ed.valid
+    if masked:
+        act = (torch.where(ld, 0.0, p0).amax(dim=-1) >= floor)  # (P, S)
+        block_of_tile = torch.repeat_interleave(
+            torch.arange(P, device=DEV), ed.tile_cnt.long())
+        valid = valid & (ed.cov & act[block_of_tile]).any(dim=1)[:, None]
+        vert_act = act.repeat_interleave(c // nsub, dim=1).reshape(-1)
+    else:
+        vert_act = torch.ones(P * c, dtype=torch.bool, device=DEV)
+    m = int(valid.sum())
+    n_pad = values.shape[0]
+    n_out = int(vert_act.sum())
+    # each input read once, each output written once: the needed tile slots
+    # (13 B), the values in, the active vertices' values out, psd and dmax
+    # out; aux in and the active vertices' vconst in only for a family
+    # whose edge_map reads aux and whose apply reads vconst (k_ppr)
+    aux_b = 4 if program.aux_fn is not None else 0
+    vc_b = 4 * L if program.uses_vconst else 0
+    nbytes = (m * 13 + n_pad * 4 * L + n_total * aux_b
+              + n_out * (4 * L + vc_b) + P * nsub * L * 8)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # the same counted with one value gather (and aux gather) per edge slot
+    # (what a kernel that caches nothing across slots must read)
+    gather_ms = (m * (13 + 4 * L + aux_b) + n_out * (4 * L + vc_b)) \
+        / HBM_BYTES_PER_S * 1e3
+    # library yardstick (timed here only): a gather of the (E, L) rows, the
+    # map, and one scatter-reduce over the edges the mask needs
+    idx = torch.nonzero(valid.view(-1)).view(-1)
+    src = ed.src.view(-1)[idx].long()
+    block_of_tile = torch.repeat_interleave(
+        torch.arange(P, device=DEV), ed.tile_cnt.long())
+    dst = (block_of_tile[:, None] * c + ed.dstl.long()).view(-1)[idx]
+    w = ed.w.view(-1)[idx]
+    ident = float(program.identity)
+
+    def library():
+        msg = program.edge_map(values.index_select(0, src),
+                               ed.aux.index_select(0, src), w)
+        if program.combine == "sum":
+            agg = torch.zeros_like(values).index_add_(0, dst, msg)
+        else:
+            agg = torch.full_like(values, ident).scatter_reduce_(
+                0, dst[:, None].expand(-1, L), msg, reduce="amin")
+        return program.apply(values, agg, vc, n_total)
+
+    library_ms = cuda_ms(library, 10)
+    log(f"[kernel] {label}: full cold lane sweep of {P} blocks at L={L}, "
+        f"{m} needed edges, {n_out} active vertex slots: kernel {ms!r} ms, "
+        f"plain {plain_ms!r} ms, library {library_ms!r} ms, bound "
+        f"{bound_ms!r} ms ({nbytes} B at {HBM_BYTES_PER_S:.3g} B/s; with a "
+        f"gather per edge slot {gather_ms!r} ms)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms)
+
+
+def bellman_ford(g, sources, unit=False):
+    """(n, L) min-plus fixpoint from ``sources`` over ``g``'s COO, on the
+    card. Each candidate is dist[src] + w, the engine's own float sum, so
+    the least fixpoint is unique and the engine's must equal it bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.core.graph import edges_of
+    s, d, w = edges_of(g)
+    s = torch.as_tensor(s).to(DEV)
+    d = torch.as_tensor(d).to(DEV)
+    w = (torch.ones(s.numel(), device=DEV) if unit
+         else torch.as_tensor(np.asarray(w, np.float32)).to(DEV))
+    L = len(sources)
+    dist = torch.full((g.n, L), 1e18, dtype=torch.float32, device=DEV)
+    dist[torch.as_tensor(np.asarray(sources)).to(DEV),
+         torch.arange(L, device=DEV)] = 0.0
+    dl = d[:, None].expand(-1, L).contiguous()
+    for _ in range(g.n):
+        cand = dist.index_select(0, s) + w[:, None]
+        new = dist.scatter_reduce(0, dl, cand, reduce="amin")
+        if torch.equal(new, dist):
+            break
+        dist = new
+    return dist.cpu().numpy()
+
+
+def ppr_power(g, resets, d=0.85, iters=500):
+    """(n, L) personalized PageRank by power iteration in float64 on the
+    card (the reference test's oracle): x = (1-d) r + d A x, r uniform over
+    each reset set, dangling mass vanishing (aux = max(out_deg, 1))."""
+    import numpy as np
+    import torch
+    from repro_torch.core.graph import edges_of
+    s, dst, _ = edges_of(g)
+    s = torch.as_tensor(s).to(DEV)
+    dst = torch.as_tensor(dst).to(DEV)
+    L = len(resets)
+    r = torch.zeros(g.n, L, dtype=torch.float64, device=DEV)
+    for lane, rs in enumerate(resets):
+        r[:, lane].index_add_(0, torch.as_tensor(np.asarray(rs)).to(DEV),
+                              torch.full((len(rs),), 1.0 / len(rs),
+                                         dtype=torch.float64, device=DEV))
+    inv_deg = 1.0 / torch.as_tensor(np.maximum(g.out_deg, 1)).to(
+        device=DEV, dtype=torch.float64)
+    x = r.clone()
+    for _ in range(iters):
+        msg = x.index_select(0, s) * inv_deg.index_select(0, s)[:, None]
+        nx = (1 - d) * r + d * torch.zeros_like(x).index_add_(0, dst, msg)
+        if float((nx - x).abs().max()) < 1e-15:
+            x = nx
+            break
+        x = nx
+    return x.cpu().numpy()
+
+
+def lane_counts():
+    from repro_torch.kernels import block_sweep as kb
+    return kb.lane_block_sweep.launches, kb.masked_lane_block_sweep.launches
+
+
+def serve_pending(label, svc, se):
+    """run_pending, with one line per lane batch: its family, lanes,
+    supersteps, times, host syncs, lane-kernel launches and counters.
+    Returns the results and the batches' lane-kernel launches."""
+    import numpy as np
+    import torch
+    recs = []
+    run_batch = svc._run_batch
+
+    def recorded(pend):
+        n0 = lane_counts()
+        out = run_batch(pend)
+        n1 = lane_counts()
+        recs.append((out, svc.last_batch, n1[0] - n0[0], n1[1] - n0[1]))
+        return out
+
+    svc._run_batch = recorded
+    torch.cuda.synchronize()
+    results = svc.run_pending()
+    torch.cuda.synchronize()
+    del svc._run_batch
+    for out, lr, n1l, n1lm in recs:
+        r0, m = out[0], lr.metrics
+        log(f"[serve] {label}: {r0.kind} batch on epoch {r0.epoch}: "
+            f"lanes={r0.lanes} supersteps={r0.batch_iterations} per-lane "
+            f"{[r.iterations for r in out]} converged "
+            f"{[r.converged for r in out]} run_s={r0.run_s!r} wait_s "
+            f"{[r.wait_s for r in out]!r} host_syncs={lr.host_syncs} "
+            f"launches 1l={n1l} 1lm={n1lm} updates={m.updates} "
+            f"loads={m.block_loads} bytes={m.bytes_loaded} "
+            f"queries_per_s={r0.lanes / r0.run_s!r}")
+    sm = svc.metrics
+    log(f"[serve] {label}: {sm.queries} queries in {sm.lane_batches} "
+        f"batches, snapshots_preserved={se.metrics.snapshots_preserved} "
+        f"stale_answers={sm.stale_answers} "
+        f"queries_per_s={sm.queries_per_s!r}")
+    if not all(r.converged for r in results):
+        fail(f"{label}: a query lane did not converge")
+    launches = np.array([[n1l, n1lm] for _, _, n1l, n1lm in recs]).sum(0)
+    return results, launches
+
+
+def check_answers(label, results, sources, g, kind, epoch):
+    """Every answer of ``kind`` is its pinned epoch's: SSSP/BFS bitwise
+    against Bellman-Ford on ``g``, PPR against power iteration at the
+    reference test's tolerance (rtol=1e-3, atol=1e-6)."""
+    import numpy as np
+    got = [r for r in results if r.kind == kind]
+    if len(got) != len(sources) or any(r.epoch != epoch for r in got):
+        fail(f"{label}: {kind} answers not all on epoch {epoch}")
+    got.sort(key=lambda r: r.query_id)
+    vals = np.stack([r.values for r in got], axis=1)
+    if not np.all(np.isfinite(vals)) or vals.shape != (g.n, len(sources)):
+        fail(f"{label}: {kind} answers not finite of shape "
+             f"({g.n}, {len(sources)})")
+    if kind == "ppr":
+        want = ppr_power(g, sources)
+        if not np.allclose(vals, want, rtol=1e-3, atol=1e-6):
+            fail(f"{label}: ppr answers off the power iteration")
+        err = float(np.max(np.abs(vals - want)))
+        log(f"[check] {label}: {len(sources)} ppr answers on epoch {epoch} "
+            f"within rtol=1e-3, atol=1e-6 of the power iteration (max abs "
+            f"difference {err!r})")
+        return
+    want = bellman_ford(g, sources, unit=kind == "bfs")
+    if not np.array_equal(vals, want):
+        fail(f"{label}: {kind} answers not bitwise Bellman-Ford's")
+    log(f"[check] {label}: {len(sources)} {kind} answers on epoch {epoch} "
+        f"bitwise equal to Bellman-Ford on the card")
+
+
+def serve_phase(label, se, waves0, waves1, batch):
+    """One serving phase: a QueryService(max_lanes=LANES) over the stream
+    ``se``. The queries of ``waves0`` ((kind, params) pairs: sources, or
+    ppr reset sets) are submitted on the current epoch, ``batch`` is
+    ingested while they pend, and run_pending() must answer every one on
+    the pinned epoch; then the queries of ``waves1`` run on the new epoch.
+    Returns the launches of kernels 1l and 1lm on the serving path."""
+    import numpy as np
+    from repro_torch.serve import Query, QueryService
+
+    def query(kind, p):
+        return (Query(kind=kind, reset=p) if kind == "ppr"
+                else Query(kind=kind, source=p))
+
+    svc = QueryService(se, max_lanes=LANES)
+    g0, e0 = se.current_graph(), se.epoch
+    preserved = se.metrics.snapshots_preserved
+    t0 = time.perf_counter()
+    svc.submit(query(waves0[0][0], waves0[0][1][0]))
+    pin_s = time.perf_counter() - t0
+    for i, (kind, params) in enumerate(waves0):
+        for p in params[1 if i == 0 else 0:]:
+            svc.submit(query(kind, p))
+    r = svc.ingest(batch)
+    log(f"[serve] {label}: first submit (pins epoch {e0}, copies the "
+        f"coupling counts {se.W.shape} and degrees on the host) {pin_s!r} "
+        f"s; ingest of +{r.inserts} -{r.deletes} while {svc.pending} "
+        f"queries pend: ingest_s={r.ingest_time_s!r} reconverge_s="
+        f"{r.reconverge_time_s!r} plan_rebuild={r.plan_rebuild} "
+        f"snapshots_preserved={se.metrics.snapshots_preserved}")
+    if se.metrics.snapshots_preserved != preserved + 1:
+        fail(f"{label}: the ingest must preserve the pinned epoch once")
+    zero_counts()
+    results, launches = serve_pending(f"{label} epoch {e0}", svc, se)
+    for kind, params in waves0:
+        check_answers(label, results, params, g0, kind, e0)
+    if waves1:
+        g1, e1 = se.current_graph(), se.epoch
+        for kind, params in waves1:
+            for p in params:
+                svc.submit(query(kind, p))
+        results, n1 = serve_pending(f"{label} epoch {e1}", svc, se)
+        for kind, params in waves1:
+            check_answers(label, results, params, g1, kind, e1)
+        launches = launches + n1
+    return [int(n) for n in np.asarray(launches)]
+
+
 def launch_counts():
     from repro_torch.kernels import block_sweep as kb
     return kb.block_sweep.launches, kb.masked_block_sweep.launches
@@ -325,6 +745,8 @@ def zero_counts():
     from repro_torch.kernels import block_sweep as kb
     kb.block_sweep.launches = 0
     kb.masked_block_sweep.launches = 0
+    kb.lane_block_sweep.launches = 0
+    kb.masked_lane_block_sweep.launches = 0
 
 
 def agree(name, got, want, exact):
@@ -413,6 +835,7 @@ def main() -> int:
     from repro_torch.core.baseline import BaselineEngine
     from repro_torch.core.engine import EngineConfig, StructureAwareEngine
     from repro_torch.kernels import _build
+    from repro_torch.kernels import block_sweep as kb
     from repro_torch.stream import StreamingEngine, synthetic_stream
 
     t_start = time.perf_counter()
@@ -450,6 +873,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 2: kernels vs plain, and the sweeps' times --------------------
+    log(f"[time] phase 2 starts at {time.perf_counter() - t_start:.1f} s")
     rng = np.random.default_rng(SEED)
     errs = {"1": [], "1m": []}
     times = {}
@@ -519,7 +943,66 @@ def main() -> int:
         A.cc(), em.edge_state, BLOCK, n_live, n_total, em.values0)
     del se, em, ed
 
+    # 2d: the lane sweeps (kernels 1l and 1lm) at L = LANES
+    log(f"[time] phase 2d starts at {time.perf_counter() - t_start:.1f} s")
+    errs.update({"1l": [], "1lm": []})
+    done = np.zeros(LANES, bool)
+    done[[1, 5]] = True
+    for name, prog, plain_dev in (("sssp", A.k_source_sssp(), DEV),
+                                  ("pagerank", A.k_personalized_pagerank(),
+                                   "cpu")):
+        sa = engines[name][0]
+        c, n_live, n_total = BLOCK, sa.plan.n_live, sa.plan.graph.n
+        P = sa.plan.num_blocks
+        floor = np.float32(sa._psd_floor())
+        ed8 = masked_tiles(sa, SUB)
+        values, vconst = lane_state(prog, sa._values_len, rng)
+        label = f"{prog.name} on the {name} graph"
+        errs["1l"].append(check_lanes_against_plain(
+            f"{label} kernel 1l", prog, sa.edge_state, c, n_live, n_total,
+            values, vconst, rng, plain_dev))
+        psd8 = np.where(rng.random((P, SUB, LANES)) < 0.3, np.float32(1.0),
+                        floor / 2).astype(np.float32)
+        errs["1lm"].append(check_lanes_against_plain(
+            f"{label} kernel 1lm S={SUB}", prog, ed8, c, n_live, n_total,
+            values, vconst, rng, plain_dev, floor=floor, psd0=psd8,
+            lane_done=done))
+        if name == "sssp":  # the kernels line times the k_sssp sweeps
+            times["1l"] = time_lane_sweep(
+                f"{label} kernel 1l", prog, sa.edge_state, c, n_live,
+                n_total, values, vconst)
+            for frac in (1.0, 1.0 / SUB):
+                times[("1lm", frac)] = time_lane_sweep(
+                    f"{label} kernel 1lm S={SUB}, live fraction {frac!r}",
+                    prog, ed8, c, n_live, n_total, values, vconst,
+                    floor=floor, lane_done=np.zeros(LANES, bool),
+                    psd0=np.repeat(sub_mask_psd(rng, P, SUB, floor, frac)
+                                   [:, :, None], LANES, axis=2))
+            # a one-lane k_sssp sweep is kernel 1's sssp sweep, bitwise
+            rows = torch.arange(P, dtype=torch.int32, device=DEV)
+            ok = torch.ones(P, dtype=torch.bool, device=DEV)
+            kw = dict(block_size=c, n_live=n_live)
+            lv = torch.from_numpy(values[:, :1].copy()).to(DEV)
+            lp, ld = (torch.zeros(P, 1, 1, device=DEV) for _ in range(2))
+            kb.lane_block_sweep(prog, n_total, sa.edge_state, lv,
+                                torch.zeros_like(lv), rows, ok, lp, ld,
+                                torch.zeros(1, dtype=torch.bool, device=DEV),
+                                kb.make_lane_scratch(sa.edge_state, c, 1),
+                                **kw)
+            sv = torch.from_numpy(values[:, 0].copy()).to(DEV)
+            sp, sd = (torch.zeros(P, 1, device=DEV) for _ in range(2))
+            kb.block_sweep(sa.program, n_total, sa.edge_state, sv, rows, ok,
+                           sp, sd, kb.make_scratch(sa.edge_state, c), **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(lv[:, 0], sv) and torch.equal(
+                    lp.view(P, 1), sp) and torch.equal(ld.view(P, 1), sd)):
+                fail("a one-lane k_sssp sweep differs from kernel 1's")
+            log("[kernel] one-lane k_sssp sweep of every block bitwise equal "
+                "to kernel 1's sssp sweep (values, psd, dmax)")
+        del ed8
+
     # -- phase 3: the main path ----------------------------------------------
+    log(f"[time] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     launches = 0
     results = {}
     for name, (sa, base) in engines.items():
@@ -559,6 +1042,7 @@ def main() -> int:
     del engines, results
 
     # -- phase 4: streaming with hierarchical partitions ---------------------
+    log(f"[time] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     g = cases["pagerank"][1]
     scfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=T2_PAGERANK,
                         subblocks=SUB, max_iterations=STREAM_CAP)
@@ -567,6 +1051,7 @@ def main() -> int:
                synthetic_stream(g, 1, 200, seed=13, delete_frac=0.2)[0]]
     masked_launches, se = stream_phase("pagerank stream", g, A.pagerank(),
                                        scfg, batches, exact=False)
+    gq = cases["sssp"][1]
     del se, cases
     gs = G.powerlaw_graph(SSSP_STREAM_N, avg_deg=AVG_DEG, seed=2,
                           weighted=True)
@@ -579,10 +1064,52 @@ def main() -> int:
     masked_launches += n1m
     if masked_launches == 0:
         fail("the masked kernel never launched on the streaming path")
+    se_sssp = se
+
+    # -- phase 5a: query serving at n = 2^21 through kernel 1l ---------------
+    log(f"[time] phase 5a starts at {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    qcfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=SERVE_T2,
+                        max_iterations=SERVE_CAP)
+    se = StreamingEngine(gq, A.pagerank(), qcfg, device=DEV)
+    init = se.initial_result.metrics
+    log(f"[serve] 5a: PageRank stream on powerlaw_graph(n={gq.n}) built and "
+        f"bootstrapped in {time.perf_counter() - t0:.1f} s: "
+        f"iterations={init.iterations} converged={init.converged}")
+    if not init.converged:
+        fail("5a: the host program's bootstrap did not converge")
+    qrng = np.random.default_rng(SEED + 5)
+    resets = [[int(v) for v in qrng.choice(gq.n, 2, replace=False)]
+              for _ in range(LANES)]
+    lane_launches = serve_phase(
+        "5a", se, [("ppr", resets)], [],
+        synthetic_stream(gq, 1, 200, seed=21, delete_frac=0.2,
+                         weighted=True)[0])[0]
+    if lane_launches == 0:
+        fail("5a: the lane kernel never launched on the serving path")
     del se
 
-    # -- phase 5: the kernels line, the card, and the result -----------------
+    # -- phase 5b: query serving at S = 8 through kernel 1lm -----------------
+    log(f"[time] phase 5b starts at {time.perf_counter() - t_start:.1f} s")
+    se = se_sssp
+    gb = se.current_graph()
+    waves = [("sssp", [int(v) for v in qrng.choice(gb.n, LANES,
+                                                   replace=False)]),
+             ("bfs", [int(v) for v in qrng.choice(gb.n, LANES,
+                                                  replace=False)])]
+    wave1 = [("sssp", [int(v) for v in qrng.choice(gb.n, LANES,
+                                                   replace=False)])]
+    masked_lane_launches = serve_phase(
+        "5b", se, waves, wave1,
+        synthetic_stream(gb, 1, 200, seed=22, delete_frac=0.2,
+                         weighted=True)[0])[1]
+    if masked_lane_launches == 0:
+        fail("5b: the masked lane kernel never launched on the serving path")
+    del se, se_sssp
+
+    # -- phase 6: the kernels line, the card, and the result -----------------
     t, tm = times["pagerank"], times[("pagerank", 1.0)]
+    tl, tlm = times["1l"], times[("1lm", 1.0)]
     rows = [
         dict(name="block_sweep", route="cuda",
              source="src/repro_torch/csrc/block_sweep.cu",
@@ -596,6 +1123,19 @@ def main() -> int:
              launches=masked_launches, max_abs_err=max(errs["1m"]),
              ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
              bound_by="bytes", library_ms=tm["library_ms"]),
+        dict(name="lane_block_sweep", route="cuda",
+             source="src/repro_torch/csrc/block_sweep.cu",
+             replaces="src/repro/kernels/block_sweep.py:136",
+             launches=lane_launches, max_abs_err=max(errs["1l"]),
+             ms=tl["ms"], plain_ms=tl["plain_ms"], bound_ms=tl["bound_ms"],
+             bound_by="bytes", library_ms=tl["library_ms"]),
+        dict(name="masked_lane_block_sweep", route="cuda",
+             source="src/repro_torch/csrc/block_sweep.cu",
+             replaces="src/repro/kernels/block_sweep.py:150",
+             launches=masked_lane_launches, max_abs_err=max(errs["1lm"]),
+             ms=tlm["ms"], plain_ms=tlm["plain_ms"],
+             bound_ms=tlm["bound_ms"], bound_by="bytes",
+             library_ms=tlm["library_ms"]),
     ]
     log(f"[done] in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

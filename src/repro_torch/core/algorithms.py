@@ -1,4 +1,6 @@
-"""Vertex programs: PR, CC, SSSP, BFS; port of ``repro.core.algorithms``.
+"""Vertex programs: PR, CC, SSSP, BFS, and the query lane families
+(k-source SSSP/BFS, personalized PageRank); port of
+``repro.core.algorithms``.
 
 Each program supplies the pull-mode update and its *state degree* delta
 (paper §3.3): PR uses Eq. 3 (|rank_curr - rank_next|), SSSP uses Eq. 4 (the
@@ -29,8 +31,9 @@ from repro_torch.core.graph import Graph
 
 INF = np.float32(1e18)  # finite 'infinity': keeps inf-inf NaNs out of f32 math
 
-# kernel program ids (csrc/block_sweep.cu switches on these)
-PAGERANK, SSSP, BFS, CC = 0, 1, 2, 3
+# kernel program ids (csrc/block_sweep.cu switches on these; PPR is the
+# personalized-PageRank lane family)
+PAGERANK, SSSP, BFS, CC, PPR = 0, 1, 2, 3, 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,4 +276,178 @@ REGISTRY: dict[str, Callable[..., VertexProgram]] = {
     "sssp": sssp,
     "bfs": bfs,
     "cc": cc,
+}
+
+
+# -- multi-lane programs (repro_torch.serve) ---------------------------------
+@dataclasses.dataclass(frozen=True)
+class LaneProgram:
+    """A *family* of per-source queries executed as lanes of one run (port
+    of the reference's ``LaneProgram``).
+
+    Vertex values carry a trailing lane axis ``(n, L)`` and one sweep
+    advances every lane: the edge slice is read once and the messages and
+    aggregates are ``(E, L)``/``(C, L)``. Everything per lane (the query's
+    source, a personalized restart vector) lives in data: the init values
+    and the optional per-vertex ``vconst`` matrix.
+
+    ``lane_init(n, params)`` builds that data on the host, one param per
+    lane, as ``(values (n, L) float32, vconst (n, L) float32 | None)`` in
+    ORIGINAL vertex ids. ``aux_fn(out_deg, in_deg)`` gives the family's
+    per-vertex constant (None: the family ignores aux). ``edge_map``/
+    ``apply``/``sd_delta`` take torch tensors and are the plain versions of
+    what the lane sweep kernel computes for ``kernel_id``.
+    """
+
+    name: str
+    combine: str  # 'sum' | 'min' | 'max'
+    needs_symmetric: bool
+    monotone_cooling: bool
+    uses_vconst: bool
+    kernel_id: int  # which program the lane sweep kernel runs
+    damping: float = 0.85
+    # lane_init(n, params) -> (values (n, L), vconst (n, L) | None)
+    lane_init: Callable[[int, list], tuple[np.ndarray,
+                                           np.ndarray | None]] = None
+    # edge_map(src_vals (E, L), src_aux (E,), w (E,)) -> (E, L)
+    edge_map: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                       torch.Tensor] = None
+    # apply(old (C, L), agg (C, L), vconst (C, L), n_total) -> (C, L)
+    apply: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int],
+                    torch.Tensor] = None
+    # sd_delta(old (C, L), new (C, L)) -> nonnegative (C, L)
+    sd_delta: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = None
+    aux_fn: Callable[[np.ndarray, np.ndarray], np.ndarray] | None = None
+
+    @property
+    def identity(self) -> np.float32:
+        return {"sum": np.float32(0.0), "min": INF,
+                "max": np.float32(-INF)}[self.combine]
+
+    def kernel_consts(self, n_total: int) -> tuple[float, float]:
+        """(d, c) of ``apply = fma(c, vconst, d * agg)`` as the f32 values
+        the reference computes with: ``d`` and ``1 - d`` evaluated in
+        double, then rounded to f32 (JAX's weak typing). Unused by the
+        min families."""
+        del n_total
+        return (float(np.float32(self.damping)),
+                float(np.float32(1.0 - self.damping)))
+
+
+def _source_lane_values(n: int, sources: list) -> np.ndarray:
+    vals = np.full((n, len(sources)), INF, dtype=np.float32)
+    for lane, s in enumerate(sources):
+        if not 0 <= int(s) < n:
+            raise ValueError(f"lane source {s} out of range [0, {n})")
+        vals[int(s), lane] = 0.0
+    return vals
+
+
+def _min_apply(old, agg, vconst, n_total):
+    del vconst, n_total
+    return torch.minimum(old, agg)
+
+
+def k_source_sssp() -> LaneProgram:
+    """L independent single-source shortest-path queries per sweep."""
+
+    def lane_init(n, sources):
+        return _source_lane_values(n, sources), None
+
+    def edge_map(src_vals, src_aux, w):
+        del src_aux
+        return src_vals + w[:, None]
+
+    def sd_delta(old, new):  # Eq. 4 per lane
+        return _zero_if(new < old, torch.minimum(new, old))
+
+    return LaneProgram(name="k_sssp", combine="min", needs_symmetric=False,
+                       monotone_cooling=False, uses_vconst=False,
+                       kernel_id=SSSP, lane_init=lane_init,
+                       edge_map=edge_map, apply=_min_apply,
+                       sd_delta=sd_delta)
+
+
+def k_source_bfs() -> LaneProgram:
+    """L independent BFS (unit-weight distance) queries per sweep."""
+
+    def lane_init(n, sources):
+        return _source_lane_values(n, sources), None
+
+    def edge_map(src_vals, src_aux, w):
+        del src_aux, w
+        return src_vals + 1.0
+
+    def sd_delta(old, new):
+        return _zero_if(new < old, torch.ones_like(new))
+
+    return LaneProgram(name="k_bfs", combine="min", needs_symmetric=False,
+                       monotone_cooling=False, uses_vconst=False,
+                       kernel_id=BFS, lane_init=lane_init,
+                       edge_map=edge_map, apply=_min_apply,
+                       sd_delta=sd_delta)
+
+
+def k_personalized_pagerank(damping: float = 0.85) -> LaneProgram:
+    """L personalized-PageRank queries per sweep: lane l restarts into its
+    own distribution r_l (``vconst`` column l), v_l = (1-d) r_l + d A v_l.
+    A lane's param is a dense (n,) distribution or a set of vertex ids
+    (uniform over the set). Dangling mass vanishes as in ``pagerank``
+    (aux = max(out_deg, 1)).
+
+    ``apply`` is pinned to what XLA on CPU computes for the reference's
+    ``(1-d) * vconst + d * agg``: ``fma(f32(1-d), vconst, f32(d * agg))``,
+    with ``1-d`` evaluated in double and rounded once. Here the product
+    ``d * agg`` is rounded to f32 and the rest is evaluated in float64
+    from f32 operands and rounded once; the kernel computes
+    ``__fmaf_rn(omd, vc, __fmul_rn(d, agg))``."""
+    d32 = float(np.float32(damping))
+    omd = float(np.float32(1.0 - damping))
+
+    def lane_init(n, resets):
+        r = np.zeros((n, len(resets)), dtype=np.float32)
+        for lane, rs in enumerate(resets):
+            rs = np.asarray(rs)
+            if rs.ndim == 1 and rs.size == n and rs.dtype.kind == "f":
+                col = rs.astype(np.float64)
+                if not np.isclose(col.sum(), 1.0, rtol=1e-4):
+                    raise ValueError("dense reset must sum to 1")
+                r[:, lane] = col.astype(np.float32)
+            else:
+                ids = rs.astype(np.int64).reshape(-1)
+                if ids.size == 0 or ids.min() < 0 or ids.max() >= n:
+                    raise ValueError("reset set must be non-empty vertex "
+                                     f"ids in [0, {n})")
+                # a repeated id accumulates its full share
+                np.add.at(r[:, lane], ids, np.float32(1.0 / ids.size))
+        # start at the restart vector: the fixpoint's (1-d) r term is
+        # already in place
+        return r.copy(), r
+
+    def edge_map(src_vals, src_aux, w):
+        del w
+        return src_vals / src_aux[:, None]
+
+    def apply(old, agg, vconst, n_total):
+        del old, n_total
+        return (omd * vconst.double() + (d32 * agg).double()).float()
+
+    def sd_delta(old, new):  # Eq. 3 per lane
+        return torch.abs(new - old)
+
+    def aux_fn(out_deg, in_deg):
+        del in_deg
+        return np.maximum(out_deg, 1).astype(np.float32)
+
+    return LaneProgram(name="k_ppr", combine="sum", needs_symmetric=False,
+                       monotone_cooling=True, uses_vconst=True,
+                       kernel_id=PPR, damping=damping, lane_init=lane_init,
+                       edge_map=edge_map, apply=apply, sd_delta=sd_delta,
+                       aux_fn=aux_fn)
+
+
+LANE_FAMILIES: dict[str, Callable[..., LaneProgram]] = {
+    "sssp": k_source_sssp,
+    "bfs": k_source_bfs,
+    "ppr": k_personalized_pagerank,
 }

@@ -16,7 +16,9 @@ The engine executes one vertex program over a :class:`PartitionPlan`:
 
 Every block update goes through one hand-written CUDA kernel, the fused
 block sweep (:mod:`repro_torch.kernels.block_sweep`): its unmasked form at
-``subblocks = 1``, its sub-block-masked form at ``subblocks > 1``.
+``subblocks = 1``, its sub-block-masked form at ``subblocks > 1``; the
+query lanes of :mod:`repro_torch.serve` through its lane forms
+(:func:`make_lane_processor`).
 
 Device-resident loop (``run()``, the default). The host enqueues the
 supersteps of a chunk — up to the next repartition boundary — without
@@ -67,7 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import state as state_lib
-from repro_torch.core.algorithms import VertexProgram
+from repro_torch.core.algorithms import LaneProgram, VertexProgram
 from repro_torch.core.graph import Graph, symmetrize
 from repro_torch.core.metrics import Metrics, Timer, block_io_bytes
 from repro_torch.core.partition import (TILE, PartitionPlan, TiledStorage,
@@ -303,8 +305,45 @@ def make_tiled_processor(program: VertexProgram, ed: EdgeData,
     return process_one, process_iterated
 
 
+def make_lane_processor(program: LaneProgram, block_size: int, n_live: int,
+                        n_total: int, subblocks: int = 1,
+                        floor: float = 0.0):
+    """Lane-axis generalization of :func:`make_tiled_processor`, through the
+    lane sweep kernel: values and ``vconst`` are (values_len, L), psd/dmax
+    (P, S, L), and one pass over a block's tiles advances every lane.
+
+    * ``process_one(ed, values, vconst, psd, dmax, rows, ok, lane_done,
+      scratch)`` — one pass over every ok slot from one snapshot;
+    * ``process_iterated(..., scratch, t_inner)`` — ``t_inner``
+      Gauss-Seidel passes of a one-slot slate.
+
+    With ``subblocks > 1`` each slot applies one (S,) mask shared by the
+    lanes: a sub-range is live if any lane not done prices it at or over
+    ``floor``. ``scratch`` comes from ``kernels.block_sweep.
+    make_lane_scratch`` for the tiles of ``ed``."""
+    kw = dict(block_size=block_size, n_live=n_live)
+    if subblocks == 1:
+        sweep = kb.lane_block_sweep
+    else:
+        sweep = functools.partial(kb.masked_lane_block_sweep, floor=floor)
+
+    def process_one(ed, values, vconst, psd, dmax, rows, ok, lane_done,
+                    scratch):
+        sweep(program, n_total, ed, values, vconst, rows, ok, psd, dmax,
+              lane_done, scratch, **kw)
+
+    def process_iterated(ed, values, vconst, psd, dmax, rows, ok, lane_done,
+                         scratch, t_inner):
+        for p in range(t_inner):
+            sweep(program, n_total, ed, values, vconst, rows, ok, psd, dmax,
+                  lane_done, scratch, first=p == 0, last=p == t_inner - 1,
+                  **kw)
+
+    return process_one, process_iterated
+
+
 def coupling_from_counts(block_edge_counts: np.ndarray,
-                         program: VertexProgram,
+                         program: VertexProgram | LaneProgram,
                          block_size: int) -> np.ndarray:
     """(P, P) staleness-coupling matrix from the block->block edge-count
     matrix W_jb (number of edges from block j's vertices into block b), or
@@ -482,8 +521,16 @@ class StructureAwareEngine:
     @property
     def edge_state(self) -> EdgeData:
         """The live device-resident edge state (the commits update it in
-        place)."""
+        place). Across commits, take :meth:`edge_snapshot` instead."""
         return self._ed
+
+    def edge_snapshot(self) -> EdgeData:
+        """Device-side deep copy of the current edge state: all twelve
+        fields, the fold metadata included, since the commits rewrite tile
+        rows and metadata in place. A caller that must keep reading this
+        epoch across future commits (the query service's snapshot
+        isolation) copies first. O(m) device bytes, no host traffic."""
+        return EdgeData(*(t.clone() for t in self._ed))
 
     def _copy_rows(self, targets, idx: np.ndarray, payloads,
                    chunk: int) -> int:

@@ -1,7 +1,7 @@
 """Partition state degree (PSD) bookkeeping + convergence test (§3.3, §4).
 
 Port of ``repro.core.state``: the host helpers are numpy copies, the device
-twins take torch tensors. The lane helpers arrive with the serving slice.
+twins take torch tensors.
 
 PSD(j) is the mean per-vertex state-degree delta from the most recent time
 block j was processed. Unprocessed blocks carry PSD = UNSEEN (a large
@@ -84,6 +84,61 @@ def warm_calm_sub(num_blocks: int, subblocks: int, armed_sub: np.ndarray,
     calm = np.full((num_blocks, subblocks), retire_after, dtype=np.int32)
     calm[np.asarray(armed_sub, dtype=bool)] = 0
     return calm
+
+
+def init_lane_psd(num_blocks: int, lane_active: np.ndarray,
+                  subblocks: int | None = None) -> np.ndarray:
+    """(P, L) per-lane PSD start state for a multi-lane query run, or
+    (P, S, L) when ``subblocks`` is given: active lanes carry UNSEEN in
+    every (sub-)block, padding lanes start at 0 (individually converged
+    from the first superstep)."""
+    lane_active = np.asarray(lane_active, dtype=bool)
+    shape = ((num_blocks, lane_active.shape[0]) if subblocks is None
+             else (num_blocks, subblocks, lane_active.shape[0]))
+    psd = np.zeros(shape, dtype=np.float32)
+    psd[..., lane_active] = UNSEEN
+    return psd
+
+
+def fold_lane_psd(psd: np.ndarray, lane_done: np.ndarray) -> np.ndarray:
+    """(P,) block priority from (P, L) per-lane PSDs, or (P, S, L): the max
+    over the lanes still running (and over sub-blocks), so a block hot in
+    ANY live lane is schedulable and a retired lane stops pricing blocks."""
+    psd = np.asarray(psd, dtype=np.float32)
+    lane_done = np.asarray(lane_done, dtype=bool)
+    mask = lane_done[None, :] if psd.ndim == 2 else lane_done[None, None, :]
+    masked = np.where(mask, 0.0, psd)
+    if masked.shape[-1] == 0:
+        return np.zeros(masked.shape[0], np.float32)
+    out = masked.max(axis=-1)  # over lanes
+    return out.max(axis=-1) if out.ndim == 2 else out  # over sub-blocks
+
+
+def fold_lane_psd_device(psd: torch.Tensor,
+                         lane_done: torch.Tensor) -> torch.Tensor:
+    """Device twin of :func:`fold_lane_psd`."""
+    mask = lane_done[None, :] if psd.dim() == 2 else lane_done[None, None, :]
+    out = torch.where(mask, 0.0, psd).amax(dim=-1)
+    return out.amax(dim=-1) if out.dim() == 2 else out
+
+
+def lane_sub_psd_device(psd: torch.Tensor,
+                        lane_done: torch.Tensor) -> torch.Tensor:
+    """(P, S) lane-folded per-sub-block priority from a (P, S, L) lane PSD:
+    the max over the lanes still running. This is the one sub-block mask
+    the masked lane sweep applies (``>= floor``), shared by the lanes. A
+    (P, L) input is masked, not folded, as in the reference."""
+    if psd.dim() == 2:
+        return torch.where(lane_done[None, :], 0.0, psd)
+    return torch.where(lane_done[None, None, :], 0.0, psd).amax(dim=-1)
+
+
+def lane_converged_device(psd: torch.Tensor, t2: float) -> torch.Tensor:
+    """(L,) per-lane SUM < T2 on the device; with a sub-block axis the
+    summand is each block's max over sub-blocks. The f32 sum's order is
+    torch's, not XLA's (see :func:`converged_device`)."""
+    blk = psd.amax(dim=1) if psd.dim() == 3 else psd
+    return blk.sum(dim=0) < float(np.float32(t2))
 
 
 def converged(psd: np.ndarray, t2: float) -> bool:

@@ -13,6 +13,15 @@ single-lane forms:
   from its PSD row on the device, skips tiles whose coverage is all
   masked, writes only live, active vertices and per-sub-block deltas.
 
+and, for query serving, in its lane forms (``_sweep_kernel(lanes=True)``
+with the delta tail of ``make_lane_processor.process_one``): values,
+``vconst``, psd and dmax carry a trailing axis of L lanes, and one pass over
+a block's tiles advances every lane:
+
+* :func:`lane_block_sweep` — kernel 1l, unmasked;
+* :func:`masked_lane_block_sweep` — kernel 1lm: one mask per slot, shared
+  by the lanes, derived on the device from the lanes not done.
+
 The kernel is ``repro_torch/csrc/block_sweep.cu``; its source note gives
 the design: two launches (a parallel pass over every tile of the slate,
 then an ordered per-destination fold) so the hub block that a power-law
@@ -29,14 +38,15 @@ appends at a watermark, holes left by kills and runs rebuilt in any order
 are all swept in the order the plain version defines.
 
 The wrappers launch the kernel for tensors on a CUDA device and run
-:func:`block_sweep_ref` for tensors on the CPU; there is no other path.
-``block_sweep.launches`` and ``masked_block_sweep.launches`` count kernel
-launch pairs.
+their plain version (:func:`block_sweep_ref`, :func:`lane_block_sweep_ref`)
+for tensors on the CPU; there is no other path. Each wrapper's
+``launches`` counts its kernel launch pairs.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -46,6 +56,7 @@ from repro_torch.kernels import _build
 TILE = 512  # csrc/block_sweep.cu: edge slots per tile row (partition.TILE)
 MAX_SLOTS = 8192  # csrc/block_sweep.cu: slate size the tile pass can scan
 MAX_BLOCK = 1024  # csrc/block_sweep.cu: one thread per block vertex
+MAX_LANES = 32  # csrc/block_sweep.cu: lanes of one lane sweep
 TILE_CTAS_PER_SM = 4  # 512-thread tile-pass blocks resident per SM
 LINK_NEXT = 0x3FF  # csrc/block_sweep.cu: next slot of the run, local + 1
 LINK_HEAD = 0x10000  # csrc/block_sweep.cu: first slot of its run in a tile
@@ -64,20 +75,76 @@ class SweepScratch:
     tile_grid_cap: int  # tile-pass thread blocks that fill the card once
 
 
-def make_scratch(ed, block_size: int) -> SweepScratch:
-    """Scratch for sweeps over ``ed``'s tiles (an engine's EdgeData)."""
+def _grid_sizing(ed) -> tuple[np.ndarray, int]:
+    """(tiles_ub, tile_grid_cap) of a scratch over ``ed``'s tiles."""
     dev = ed.src.device
     cnt = np.sort(ed.tile_cnt.cpu().numpy().astype(np.int64))[::-1]
     sms = (torch.cuda.get_device_properties(dev).multi_processor_count
            if dev.type == "cuda" else 1)
+    return np.maximum(np.cumsum(cnt), 1), TILE_CTAS_PER_SM * sms
+
+
+def make_scratch(ed, block_size: int) -> SweepScratch:
+    """Scratch for sweeps over ``ed``'s tiles (an engine's EdgeData)."""
+    dev = ed.src.device
     scratch = SweepScratch(
-        ed=ed,
-        part=torch.empty(ed.src.numel(), dtype=torch.float32, device=dev),
-        old=torch.empty(block_size, dtype=torch.float32, device=dev),
-        tiles_ub=np.maximum(np.cumsum(cnt), 1),
-        tile_grid_cap=TILE_CTAS_PER_SM * sms)
+        ed, torch.empty(ed.src.numel(), dtype=torch.float32, device=dev),
+        torch.empty(block_size, dtype=torch.float32, device=dev),
+        *_grid_sizing(ed))
     if dev.type == "cuda":
-        _check_edge_data(scratch, block_size)
+        _check_edge_data(ed, block_size, scratch.part, scratch.old)
+    return scratch
+
+
+@dataclasses.dataclass
+class LaneScratch:
+    """Device buffers of the lane sweeps. They are keyed to the tile
+    tensors they were checked for (every EdgeData field but ``aux``): the
+    query service sweeps one epoch's tiles with each family's own aux, and
+    a pinned epoch's preserved copy is other tensors. The key holds weak
+    references, so a scratch kept for reuse does not keep a served epoch's
+    tiles on the card."""
+
+    tiles: tuple  # weakrefs to the EdgeData fields but aux, as checked
+    lanes: int
+    part: torch.Tensor  # (n_tiles * TILE * L,) f32: per-tile run partials
+    old: torch.Tensor  # (block_size * L,) f32: a hot slot's pre-sweep values
+    tiles_ub: np.ndarray
+    tile_grid_cap: int
+
+
+def _tile_fields(ed) -> tuple:
+    return tuple(t for f, t in zip(ed._fields, ed) if f != "aux")
+
+
+def _same_tiles(scratch: LaneScratch, ed) -> bool:
+    """Whether ``scratch`` was checked for ``ed``'s tile tensors."""
+    return all(r() is t for r, t in zip(scratch.tiles, _tile_fields(ed)))
+
+
+def make_lane_scratch(ed, block_size: int, lanes: int,
+                      reuse: LaneScratch | None = None) -> LaneScratch:
+    """Scratch for lane sweeps over ``ed``'s tiles at ``lanes`` lanes.
+    ``reuse`` comes back as it is when it was made for the same tile
+    tensors and lane count; otherwise its buffers are reused where their
+    sizes fit and the new tiles are checked."""
+    if reuse is not None and reuse.lanes == lanes and _same_tiles(reuse, ed):
+        return reuse
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"lane sweeps take 1..{MAX_LANES} lanes")
+    dev = ed.src.device
+
+    def buf(name, n):
+        old = getattr(reuse, name, None)
+        if old is not None and old.numel() == n and old.device == dev:
+            return old
+        return torch.empty(n, dtype=torch.float32, device=dev)
+
+    tiles = tuple(weakref.ref(t) for t in _tile_fields(ed))
+    scratch = LaneScratch(tiles, lanes, buf("part", ed.src.numel() * lanes),
+                          buf("old", block_size * lanes), *_grid_sizing(ed))
+    if dev.type == "cuda":
+        _check_edge_data(ed, block_size, scratch.part, scratch.old)
     return scratch
 
 
@@ -224,6 +291,64 @@ def masked_block_sweep(program, n_total: int, ed, values: torch.Tensor,
 masked_block_sweep.launches = 0
 
 
+def lane_block_sweep(program, n_total: int, ed, values: torch.Tensor,
+                     vconst: torch.Tensor, rows: torch.Tensor,
+                     ok: torch.Tensor, psd: torch.Tensor, dmax: torch.Tensor,
+                     lane_done: torch.Tensor, scratch: LaneScratch, *,
+                     block_size: int, n_live: int, first: bool = True,
+                     last: bool = True) -> None:
+    """One unmasked lane sweep pass (kernel 1l), in place, over the slate
+    ``rows``/``ok`` for a :class:`~repro_torch.core.algorithms.LaneProgram`.
+
+    ``values``/``vconst`` are (values_len, L) f32, ``psd``/``dmax`` (P, 1,
+    L) or (P, L), ``lane_done`` (L,) bool (read by the masked form only).
+    Every ok slot's block reads the snapshot ``values`` and writes its new
+    values for all L lanes; ``first``/``last`` mark a hot slot's
+    Gauss-Seidel passes as for :func:`block_sweep`, and the last pass writes
+    per-lane mean and max deltas at ``psd[row]``/``dmax[row]``.
+    """
+    if values.device.type == "cpu":
+        return lane_block_sweep_ref(
+            program, n_total, ed, values, vconst, rows, ok, psd, dmax,
+            lane_done, scratch, block_size=block_size, n_live=n_live,
+            first=first, last=last)
+    _lane_launch(program, n_total, ed, values, vconst, rows, ok, psd, dmax,
+                 lane_done, scratch, block_size, n_live, first, last, None)
+    lane_block_sweep.launches += 1
+
+
+lane_block_sweep.launches = 0
+
+
+def masked_lane_block_sweep(program, n_total: int, ed,
+                            values: torch.Tensor, vconst: torch.Tensor,
+                            rows: torch.Tensor, ok: torch.Tensor,
+                            psd: torch.Tensor, dmax: torch.Tensor,
+                            lane_done: torch.Tensor, scratch: LaneScratch, *,
+                            block_size: int, n_live: int, floor: float,
+                            first: bool = True, last: bool = True) -> None:
+    """One sub-block-masked lane sweep pass (kernel 1lm), in place;
+    ``psd``/``dmax`` are (P, S, L) with S = ``ed.cov.shape[1]``.
+
+    Each slot's mask is one (S,) vector shared by the lanes: sub-range s is
+    live when the max over the lanes not done of ``psd[row, s]`` is
+    ``>= floor``, as it stands when the slot starts (the reference's
+    ``lane_sub_psd_device``). Masked sub-ranges keep their values and their
+    psd/dmax entries in every lane, as for :func:`masked_block_sweep`.
+    """
+    if values.device.type == "cpu":
+        return lane_block_sweep_ref(
+            program, n_total, ed, values, vconst, rows, ok, psd, dmax,
+            lane_done, scratch, block_size=block_size, n_live=n_live,
+            floor=floor, first=first, last=last)
+    _lane_launch(program, n_total, ed, values, vconst, rows, ok, psd, dmax,
+                 lane_done, scratch, block_size, n_live, first, last, floor)
+    masked_lane_block_sweep.launches += 1
+
+
+masked_lane_block_sweep.launches = 0
+
+
 def _launch(program, n_total, ed, values, rows, ok, psd, dmax, scratch,
             block_size, n_live, first, last, out, floor) -> None:
     out = values if out is None else out
@@ -256,6 +381,40 @@ def _launch(program, n_total, ed, values, rows, ok, psd, dmax, scratch,
                            + lib.block_sweep_error_string(err).decode())
 
 
+def _lane_launch(program, n_total, ed, values, vconst, rows, ok, psd, dmax,
+                 lane_done, scratch, block_size, n_live, first, last,
+                 floor) -> None:
+    masked = floor is not None
+    nslots = rows.numel()
+    lanes = int(values.shape[1]) if values.dim() == 2 else 0
+    nsub = int(ed.cov.shape[1]) if masked else 1
+    _check_lane_cuda(ed, values, vconst, rows, ok, psd, dmax, lane_done,
+                     scratch, block_size, nslots, first, last, nsub, lanes)
+    lib = _lib()
+    d, cst = program.kernel_consts(n_total)
+    ub = int(scratch.tiles_ub[min(nslots, scratch.tiles_ub.size) - 1])
+    grid = max(1, min(ub, scratch.tile_grid_cap))
+    fold_threads = max(32, 1 << (block_size - 1).bit_length())
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    err = lib.lane_block_sweep_launch(
+        ed.src.data_ptr(), ed.w.data_ptr(), ed.valid.data_ptr(),
+        ed.link.data_ptr(), values.data_ptr(), values.data_ptr(),
+        vconst.data_ptr(), ed.aux.data_ptr(), ed.tile_start.data_ptr(),
+        ed.tile_cnt.data_ptr(), ed.heads.data_ptr(), ed.hlo.data_ptr(),
+        ed.hhi.data_ptr(), rows.data_ptr(), ok.data_ptr(),
+        ed.cov.data_ptr(), lane_done.data_ptr(),
+        nslots, grid, fold_threads, block_size, lanes, n_live,
+        program.kernel_id, int(masked), nsub,
+        float(program.identity), d, cst,
+        float(np.float32(floor)) if masked else 0.0,
+        int(first), int(last),
+        scratch.part.data_ptr(), scratch.old.data_ptr(), psd.data_ptr(),
+        dmax.data_ptr(), stream)
+    if err:
+        raise RuntimeError("lane_block_sweep launch failed: "
+                           + lib.block_sweep_error_string(err).decode())
+
+
 def load_library() -> None:
     """Build (at first use) and load the kernel's library."""
     _lib()
@@ -268,6 +427,9 @@ def _lib() -> ctypes.CDLL:
         lib.block_sweep_launch.argtypes = (
             [p] * 15 + [i] * 8 + [f] * 4 + [i] * 2 + [p] * 5)
         lib.block_sweep_launch.restype = i
+        lib.lane_block_sweep_launch.argtypes = (
+            [p] * 17 + [i] * 9 + [f] * 4 + [i] * 2 + [p] * 5)
+        lib.lane_block_sweep_launch.restype = i
         lib.block_sweep_error_string.argtypes = [i]
         lib.block_sweep_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -281,12 +443,12 @@ def _check_tensors(pairs, dev) -> None:
                              f"tensor on {dev}, got {t.dtype} on {t.device}")
 
 
-def _check_edge_data(scratch, block_size) -> None:
-    """Checks of the edge state, once per scratch (per engine)."""
-    ed = scratch.ed
-    _check_tensors([(scratch.part, torch.float32),
-                    (scratch.old, torch.float32), (ed.src, torch.int32),
-                    (ed.dstl, torch.int32), (ed.w, torch.float32),
+def _check_edge_data(ed, block_size, *bufs) -> None:
+    """Checks of the edge state and of a scratch's buffers, once per
+    scratch."""
+    _check_tensors([(b, torch.float32) for b in bufs] + [
+                    (ed.src, torch.int32), (ed.dstl, torch.int32),
+                    (ed.w, torch.float32),
                     (ed.valid, torch.bool), (ed.cov, torch.bool),
                     (ed.aux, torch.float32), (ed.tile_start, torch.int32),
                     (ed.tile_cnt, torch.int32), (ed.link, torch.int32),
@@ -331,35 +493,101 @@ def _check_cuda(ed, values, rows, ok, psd, dmax, scratch, out, block_size,
         raise ValueError("block_sweep: multi-pass sweeps take one slot")
 
 
+def _check_lane_cuda(ed, values, vconst, rows, ok, psd, dmax, lane_done,
+                     scratch, block_size, nslots, first, last, nsub,
+                     lanes) -> None:
+    """Per-launch checks of a lane sweep; the tiles were checked with the
+    scratch, the aux that rides with them here."""
+    if scratch.lanes != lanes or not _same_tiles(scratch, ed) \
+            or scratch.old.numel() != block_size * lanes:
+        raise ValueError("lane_block_sweep: scratch built for other tiles "
+                         "or another lane count")
+    dev = ed.src.device
+    _check_tensors([(values, torch.float32), (vconst, torch.float32),
+                    (ed.aux, torch.float32), (rows, torch.int32),
+                    (ok, torch.bool), (psd, torch.float32),
+                    (dmax, torch.float32), (lane_done, torch.bool)], dev)
+    nblocks = ed.tile_cnt.numel()
+    if values.dim() != 2 or values.shape != (ed.hlo.numel(), lanes) \
+            or vconst.shape != values.shape:
+        raise ValueError("lane_block_sweep: values and vconst must be "
+                         "(values_len, L) over every block")
+    if lane_done.numel() != lanes:
+        raise ValueError("lane_block_sweep: one lane_done flag per lane")
+    if ed.aux.numel() > values.shape[0] or ed.aux.dim() != 1:
+        raise ValueError("lane_block_sweep: aux must be (n,)")
+    if not 1 <= nslots <= MAX_SLOTS or ok.numel() != nslots:
+        raise ValueError(f"lane_block_sweep: 1..{MAX_SLOTS} slots with one "
+                         f"ok flag each, got {nslots} and {ok.numel()}")
+    if psd.numel() != nblocks * nsub * lanes \
+            or dmax.numel() != psd.numel():
+        raise ValueError(f"lane_block_sweep: psd/dmax need {nsub} x {lanes} "
+                         "entries per block")
+    if block_size % nsub:
+        raise ValueError("lane_block_sweep: sub-blocks must divide the block")
+    if not (first and last) and nslots != 1:
+        raise ValueError("lane_block_sweep: multi-pass sweeps take one slot")
+
+
 # -- plain version -----------------------------------------------------------
 def _tile_partials(program, msg, valid, dl, c):
-    """(T, C) per-tile partials: the partial for destination d starts from
-    the identity and combines d's messages in slot order, one
+    """(T, C) per-tile partials of a (T, TILE) message, or (T, C, L) of a
+    (T, TILE, L) one, lane by lane: the partial for destination d starts
+    from the identity and combines d's messages in slot order, one
     ``full(identity).at[dstl].add(msg)`` per tile. ``index_add_`` on the CPU
     adds in index order, which is slot order, as the kernel's tile pass
     does whatever the layout; min/max are exact in any order. Slots that
     are not valid carry the identity."""
     n_t = msg.shape[0]
     ident = float(program.identity)
-    msg = torch.where(valid, msg, ident).reshape(-1)
+    lanes = msg.movedim(-1, 0).reshape(-1, n_t * TILE) if msg.dim() == 3 \
+        else msg.reshape(1, -1)
+    lanes = torch.where(valid.reshape(-1), lanes, ident)
     idx = (torch.arange(n_t, device=msg.device)[:, None] * c + dl).reshape(-1)
-    part = torch.full((n_t * c,), ident, device=msg.device)
-    if program.combine == "sum":
-        part.index_add_(0, idx, msg)
-    else:
-        part.scatter_reduce_(0, idx, msg, reduce="amin"
-                             if program.combine == "min" else "amax")
+    part = torch.full((lanes.shape[0], n_t * c), ident, device=msg.device)
+    for p, m in zip(part, lanes):
+        if program.combine == "sum":
+            p.index_add_(0, idx, m)
+        else:
+            p.scatter_reduce_(0, idx, m, reduce="amin"
+                              if program.combine == "min" else "amax")
+    if msg.dim() == 3:
+        return part.view(-1, n_t, c).movedim(0, -1)
     return part.view(n_t, c)
 
 
+def _fold_runs(program, part: np.ndarray, runs) -> list:
+    """Each slot's aggregate: its run of per-tile partials (consecutive rows
+    of ``part``, (T, C) or (T, C, L)) combined in tile order, one
+    sequential f32 fold per destination and lane as the kernel's fold runs
+    it (torch's CPU cumsum would accumulate in double); the identity for a
+    slot without tiles. Min/max are exact in any order."""
+    fold = {"sum": np.add, "min": np.minimum, "max": np.maximum}[
+        program.combine]
+    aggs, at = [], 0
+    for t in runs:
+        run = part[at:at + t.numel()]
+        at += t.numel()
+        if not len(run):
+            aggs.append(np.full(part.shape[1:], program.identity, np.float32))
+            continue
+        agg = run[0].copy()
+        for row in run[1:]:
+            fold(agg, row, out=agg)
+        aggs.append(agg)
+    return aggs
+
+
 def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum of a (C,) vector by the kernel's reduction tree: zero-pad to a
-    power of two, then add the upper half onto the lower until one is left
-    (adding a zero pad is exact, so any padded width gives this result)."""
-    p2 = 1 << max(x.numel() - 1, 0).bit_length()
-    x = torch.nn.functional.pad(x, (0, p2 - x.numel()))
-    while x.numel() > 1:
-        h = x.numel() // 2
+    """Sum over the first axis of a (C,) or (C, L) tensor by the kernel's
+    reduction tree: zero-pad to a power of two, then add the upper half onto
+    the lower until one is left (adding a zero pad is exact, so any padded
+    width gives this result)."""
+    n = x.shape[0]
+    p2 = 1 << max(n - 1, 0).bit_length()
+    x = torch.cat([x, x.new_zeros((p2 - n,) + x.shape[1:])])
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
         x = x[:h] + x[h:]
     return x[0]
 
@@ -399,20 +627,9 @@ def block_sweep_ref(program, n_total: int, ed, values: torch.Tensor,
     src = ed.src[tiles].long()
     msg = program.edge_map(values[src], ed.aux[src], ed.w[tiles])
     part = _tile_partials(program, msg, ed.valid[tiles],
-                          ed.dstl[tiles].long(), c)
-    # agg combines each slot's partials in tile order: numpy's accumulate
-    # is a sequential f32 loop along the tile axis (torch's CPU cumsum
-    # accumulates in double), and min/max are exact in any order
-    part = part.cpu().numpy()
-    fold = {"sum": np.add, "min": np.minimum, "max": np.maximum}[
-        program.combine]
-    aggs, at = [], 0
-    for t in runs:
-        run = part[at:at + t.numel()]
-        at += t.numel()
-        aggs.append(fold.accumulate(run, axis=0)[-1] if t.numel()
-                    else np.full(c, program.identity, np.float32))
-    aggs = torch.from_numpy(np.stack(aggs)).to(dev)
+                          ed.dstl[tiles].long(), c).cpu().numpy()
+    aggs = torch.from_numpy(np.stack(_fold_runs(program, part, runs))).to(
+        dev)
     news = []
     for agg, r, act in zip(aggs, slots, acts):
         base = r * c
@@ -435,3 +652,66 @@ def block_sweep_ref(program, n_total: int, ed, values: torch.Tensor,
                 psd2[r, s] = pairwise_sum(delta[seg]) / torch.tensor(
                     float(cnt), device=dev)
                 dmax2[r, s] = delta[seg].max()
+
+
+def lane_block_sweep_ref(program, n_total: int, ed, values: torch.Tensor,
+                         vconst: torch.Tensor, rows: torch.Tensor,
+                         ok: torch.Tensor, psd: torch.Tensor,
+                         dmax: torch.Tensor, lane_done: torch.Tensor,
+                         scratch: LaneScratch, *, block_size: int,
+                         n_live: int, floor: float | None = None,
+                         first: bool = True, last: bool = True) -> None:
+    """Plain PyTorch version of :func:`lane_block_sweep` (``floor=None``)
+    and of :func:`masked_lane_block_sweep` (``floor`` given), with the same
+    signatures and in-place effects: every lane repeats
+    :func:`block_sweep_ref`'s arithmetic in the kernel's order."""
+    c, dev = block_size, values.device
+    lanes = int(values.shape[1])
+    nsub = 1 if floor is None else int(ed.cov.shape[1])
+    sub = c // nsub
+    psd3, dmax3 = psd.view(-1, nsub, lanes), dmax.view(-1, nsub, lanes)
+    slots = [int(r) for r, k in zip(rows.tolist(), ok.tolist()) if k]
+    if not slots:
+        return
+    # each slot's mask, shared by the lanes, from its psd row at entry
+    acts = [torch.ones(1, dtype=torch.bool, device=dev) if floor is None
+            else torch.where(lane_done, 0.0, psd3[r]).amax(dim=-1)
+            >= float(np.float32(floor)) for r in slots]
+    starts, cnts = ed.tile_start.tolist(), ed.tile_cnt.tolist()
+    runs = []
+    for r, act in zip(slots, acts):
+        t = torch.arange(starts[r], starts[r] + cnts[r], device=dev)
+        if floor is not None:  # skip tiles that cover only masked ranges
+            t = t[(ed.cov[t] & act).any(dim=1)]
+        runs.append(t)
+    tiles = torch.cat(runs)
+    src = ed.src[tiles].reshape(-1).long()
+    msg = program.edge_map(values[src], ed.aux[src],
+                           ed.w[tiles].reshape(-1)).view(-1, TILE, lanes)
+    part = _tile_partials(program, msg, ed.valid[tiles],
+                          ed.dstl[tiles].long(), c).cpu().numpy()
+    aggs = _fold_runs(program, part, runs)
+    news = []
+    for agg, r, act in zip(aggs, slots, acts):
+        base = r * c
+        old = values[base:base + c].clone()
+        live = (base + torch.arange(c, device=dev)) < n_live
+        keep = (live & act.repeat_interleave(sub))[:, None]
+        new = torch.where(keep, program.apply(
+            old, torch.from_numpy(agg).to(dev), vconst[base:base + c],
+            n_total), old)
+        news.append((r, old, new, live, keep, act))
+    old_buf = scratch.old.view(c, lanes)
+    for r, old, new, live, keep, act in news:  # every slot read first
+        if first and not last:
+            old_buf.copy_(old)
+        values[r * c:(r + 1) * c] = new
+        if last:
+            delta = torch.where(keep, program.sd_delta(
+                old if first else old_buf, new), torch.zeros_like(new))
+            for s in torch.nonzero(act).view(-1).tolist():
+                seg = slice(s * sub, (s + 1) * sub)
+                cnt = max(int(live[seg].sum()), 1)
+                psd3[r, s] = pairwise_sum(delta[seg]) / torch.tensor(
+                    float(cnt), device=dev)
+                dmax3[r, s] = delta[seg].amax(dim=0)

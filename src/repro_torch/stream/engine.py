@@ -47,19 +47,22 @@ deleted edge (KickStarter-style trimming; see `algorithms.py`). PageRank
 needs no resets — its apply() ignores the old value, the warm state is
 just a good initial guess.
 
-Later slices: epoch snapshots and pins (``snapshot``) come with the serving
-slice, ``save_epoch``/``restore`` with the out-of-core slice; both raise
-``NotImplementedError`` here.
+Snapshot isolation for the query service (``snapshot`` -> :class:`EpochState`):
+a pin copies the epoch's host bookkeeping at once and its device edge state
+only when an ingest is about to mutate it, in the ingest preamble, before
+any commit; pins of one epoch share that copy. ``save_epoch``/``restore``
+belong to the out-of-core slice and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 
 from repro_torch.core import state as state_lib
 from repro_torch.core.algorithms import VertexProgram
-from repro_torch.core.engine import (EngineConfig, RunResult,
+from repro_torch.core.engine import (EdgeData, EngineConfig, RunResult,
                                      StructureAwareEngine, WarmStart,
                                      coupling_from_counts, resolve_device)
 from repro_torch.core.graph import Graph, edges_of, from_edges, symmetrize
@@ -144,6 +147,38 @@ class StreamBatchReport:
         return self.ingest_time_s + self.reconverge_time_s
 
 
+@dataclasses.dataclass
+class EpochState:
+    """A consistent read view of one StreamingEngine epoch: what a query
+    pins at admission (snapshot isolation for the serve subsystem).
+
+    Host bookkeeping (coupling counts, degrees, per-block edge counts) is
+    copied when the pin is taken. The device edge state is copied only when
+    an ingest is about to mutate it: :meth:`preserve`, called by the ingest
+    preamble for every live pin, so pins on a quiet graph cost nothing and
+    N pins of one epoch share one copy."""
+
+    epoch: int
+    engine: StructureAwareEngine  # geometry and processors of the epoch
+    coupling_counts: np.ndarray  # (P, P), or (P, P, S), block->block counts
+    out_deg: np.ndarray  # (n,) permuted, incremental truth at pin time
+    in_deg: np.ndarray
+    edge_counts: np.ndarray  # (P,) per-block live edge counts
+    _ed: EdgeData | None = None  # preserved copy; None -> the live state
+
+    @property
+    def ed(self) -> EdgeData:
+        return self._ed if self._ed is not None else self.engine.edge_state
+
+    @property
+    def preserved(self) -> bool:
+        return self._ed is not None
+
+    def preserve(self) -> None:
+        if self._ed is None:
+            self._ed = self.engine.edge_snapshot()
+
+
 class StreamingEngine:
     """Long-lived engine over a mutating graph (fixed vertex set)."""
 
@@ -159,19 +194,51 @@ class StreamingEngine:
         self.metrics = StreamMetrics()
         self.n = graph.n
         # epoch id: bumped once per ingest (and once per plan rebuild,
-        # which happens inside an ingest)
+        # which happens inside an ingest): the version a query pins
         self.epoch = 0
+        self._snapshots: list = []  # weakrefs to unpreserved EpochStates
         s, d, w = edges_of(graph)
         self._build_epoch(s, d, w)
         # bootstrap: one cold run to the initial fixpoint
         self.initial_result: RunResult = self.engine.run()
         self._values = self.initial_result.values
 
-    # -- later slices -------------------------------------------------------
-    def snapshot(self):
-        raise NotImplementedError(
-            "epoch snapshots and pins come with the serving slice")
+    # -- epoch snapshots (serve-side snapshot isolation) ---------------------
+    def snapshot(self) -> EpochState:
+        """Pin the current epoch. The view stays consistent across future
+        :meth:`ingest` calls (the ingest preamble preserves the device state
+        of every live pin before mutating it); it is tracked by weakref, so
+        dropping the last reference makes future ingests free again."""
+        es = EpochState(
+            epoch=self.epoch, engine=self.engine,
+            coupling_counts=self.W.copy(), out_deg=self.out_deg.copy(),
+            in_deg=self.in_deg.copy(),
+            edge_counts=np.array(self.engine.edge_counts))
+        self._snapshots.append(weakref.ref(es))
+        return es
 
+    def _preserve_pinned(self) -> int:
+        """Device-copy every live, unpreserved pin: the ingest preamble,
+        run before any commit rewrites the pinned tensors in place. Pins of
+        one epoch share one copy (they are read-only views of identical
+        state). Returns the number of copies taken."""
+        copies = 0
+        shared: dict[int, EdgeData] = {}
+        for ref in self._snapshots:
+            es = ref()
+            if es is None or es.preserved:
+                continue
+            ed = shared.get(es.epoch)
+            if ed is None:
+                es.preserve()
+                shared[es.epoch] = es.ed
+                copies += 1
+            else:
+                es._ed = ed
+        self._snapshots = []
+        return copies
+
+    # -- later slices -------------------------------------------------------
     def save_epoch(self, ckpt, step: int | None = None):
         raise NotImplementedError(
             "save_epoch comes with the out-of-core slice")
@@ -241,6 +308,10 @@ class StreamingEngine:
         c = plan.block_size
         inv = plan.inv
         self._validate(batch)
+        # snapshot isolation: queries pinned to the current epoch keep
+        # reading it, so copy their device state before this batch's
+        # commits (or plan rebuild) touch it
+        self.metrics.snapshots_preserved += self._preserve_pinned()
         sym = prog.needs_symmetric
         appended = rebuilt = killed_blocks = 0
         n_reset = 0

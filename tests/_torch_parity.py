@@ -107,3 +107,72 @@ def emulate_kernel(program, n_total, ed, values, rows, ok, psd, dmax, *,
             psd2[r, s] = kb.pairwise_sum(delta[seg]) / torch.tensor(
                 float(cnt))
             dmax2[r, s] = delta[seg].max()
+
+
+def emulate_lane_kernel(program, n_total, ed, values, vconst, rows, ok, psd,
+                        dmax, lane_done, *, block_size, n_live, floor=None):
+    """A one-pass lane sweep re-enacted in numpy the way the lane kernel of
+    csrc/block_sweep.cu runs it: one mask per slot from the lanes not done,
+    the tile pass walking each run's ``link`` chain per lane from its head,
+    the fold adding each vertex's partials through ``heads[hlo:hhi]`` lane
+    by lane. In place, like the kernel."""
+    from repro_torch.kernels import block_sweep as kb
+    c, lanes = block_size, values.shape[1]
+    nsub = 1 if floor is None else int(ed.cov.shape[1])
+    sub = c // nsub
+    ident = np.float32(program.identity)
+    merge = {"sum": lambda a, b: (a + b).astype(np.float32),
+             "min": np.minimum, "max": np.maximum}[program.combine]
+    src = ed.src.numpy().reshape(-1)
+    w = ed.w.numpy().reshape(-1)
+    valid = ed.valid.numpy().reshape(-1)
+    link = ed.link.numpy().reshape(-1)
+    heads, hlo, hhi = ed.heads.numpy(), ed.hlo.numpy(), ed.hhi.numpy()
+    cov = ed.cov.numpy()
+    ts, tc = ed.tile_start.numpy(), ed.tile_cnt.numpy()
+    psd3, dmax3 = psd.view(-1, nsub, lanes), dmax.view(-1, nsub, lanes)
+    done = lane_done.numpy()
+    slots = [int(r) for r, k in zip(rows.tolist(), ok.tolist()) if k]
+    acts = {r: (np.ones(1, bool) if floor is None else np.where(
+        done, np.float32(0), psd3[r].numpy()).max(axis=-1)
+        >= np.float32(floor)) for r in slots}
+    part = np.zeros((src.size, lanes), np.float32)
+    for r in slots:  # launch 1: the tile pass
+        for t in range(ts[r], ts[r] + tc[r]):
+            if floor is not None and not (cov[t] & acts[r]).any():
+                continue
+            e = t * kb.TILE + np.arange(kb.TILE)
+            s_e = torch.from_numpy(src[e]).long()
+            m = program.edge_map(values[s_e], ed.aux[s_e],
+                                 torch.from_numpy(w[e])).numpy()
+            for j in np.flatnonzero(valid[e] & ((link[e] & kb.LINK_HEAD)
+                                                > 0)):
+                acc = merge(np.full(lanes, ident), m[j])
+                k = link[e[j]] & kb.LINK_NEXT
+                while k:
+                    acc = merge(acc, m[k - 1])
+                    k = link[e[k - 1]] & kb.LINK_NEXT
+                part[e[j]] = acc
+    news = []
+    for r in slots:  # launch 2: the fold, one block per slot
+        base = r * c
+        live = base + np.arange(c) < n_live
+        keep = live & np.repeat(acts[r], sub)
+        agg = np.full((c, lanes), ident, np.float32)
+        for i in np.flatnonzero(keep):
+            for h in heads[hlo[base + i]:hhi[base + i]]:
+                agg[i] = merge(agg[i], part[h])
+        old = values[base:base + c].clone()
+        new = torch.where(torch.from_numpy(keep)[:, None], program.apply(
+            old, torch.from_numpy(agg), vconst[base:base + c], n_total), old)
+        news.append((r, old, new, live, keep))
+    for r, old, new, live, keep in news:
+        values[r * c:(r + 1) * c] = new
+        delta = torch.where(torch.from_numpy(keep)[:, None],
+                            program.sd_delta(old, new), 0.0)
+        for s in np.flatnonzero(acts[r]):
+            seg = slice(s * sub, (s + 1) * sub)
+            cnt = max(int(live[seg].sum()), 1)
+            psd3[r, s] = kb.pairwise_sum(delta[seg]) / torch.tensor(
+                float(cnt))
+            dmax3[r, s] = delta[seg].amax(dim=0)

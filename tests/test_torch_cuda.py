@@ -169,3 +169,112 @@ def test_stream_on_card_matches_cpu(card, algo):
     assert kb.masked_block_sweep.launches > 0
     for a, b in zip(gpu.engine.edge_state, cpu.engine.edge_state):
         assert torch.equal(a.cpu(), b)
+
+
+def _lane_inputs(eng, fam, lanes, rng):
+    n_pad = eng._values_len
+    if fam == "ppr":
+        v = rng.uniform(0.0, 1e-3, (n_pad, lanes)).astype(np.float32)
+        vc = np.where(rng.random((n_pad, lanes)) < 0.01, 0.5, 0.0)
+        return v, vc.astype(np.float32)
+    v = np.where(rng.random((n_pad, lanes)) < 0.4, A.INF,
+                 rng.uniform(0.0, 30.0, (n_pad, lanes))).astype(np.float32)
+    return v, np.zeros_like(v)
+
+
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("fam", ["sssp", "bfs", "ppr"])
+def test_lane_kernel_matches_plain(card, fam, s):
+    """Kernels 1l (S = 1) and 1lm (S = 4) against their plain version at
+    L = 8, on a cold slate and on 3-pass hot chains, bitwise."""
+    host = "pagerank" if fam == "ppr" else fam
+    cfg = EngineConfig(block_size=128, width=8, t2=1e-9, subblocks=s)
+    eng = StructureAwareEngine(_graph(host), A.REGISTRY[host](), cfg)
+    P, c, lanes = eng.plan.num_blocks, cfg.block_size, 8
+    rng = np.random.default_rng(3)
+    prog = A.LANE_FAMILIES[fam]()
+    values, vconst = _lane_inputs(eng, fam, lanes, rng)
+    floor = np.float32(eng._psd_floor()) if s > 1 else None
+    psd0 = np.where(rng.random((P, s, lanes)) < 0.3, 1.0,
+                    np.float32(eng._psd_floor()) / 2).astype(np.float32)
+    done = np.zeros(lanes, bool)
+    done[[1, 5]] = True
+    ed = eng.edge_state
+    ed_cpu = type(ed)(*(t.cpu() for t in ed))
+    slates = [(np.arange(P, dtype=np.int32), rng.random(P) < 0.7, 1)] + [
+        (np.array([b], np.int32), np.ones(1, bool), 3)
+        for b in rng.choice(P, 4, replace=False)]
+    for rows, ok, depth in slates:
+        out = []
+        for dev, e in (("cuda", ed), ("cpu", ed_cpu)):
+            v = torch.from_numpy(values.copy()).to(dev)
+            p = torch.from_numpy(psd0.copy()).to(dev)
+            d = torch.full(psd0.shape, -1.0, device=dev)
+            args = [torch.from_numpy(a).to(dev) for a in (vconst, rows, ok)]
+            sc = kb.make_lane_scratch(e, c, lanes)
+            for i in range(depth):
+                kw = dict(block_size=c, n_live=eng.plan.n_live,
+                          first=i == 0, last=i == depth - 1)
+                call = [prog, eng.plan.graph.n, e, v, *args, p, d,
+                        torch.from_numpy(done).to(dev), sc]
+                if dev == "cpu":
+                    kb.lane_block_sweep_ref(*call, floor=floor, **kw)
+                elif floor is None:
+                    kb.lane_block_sweep(*call, **kw)
+                else:
+                    kb.masked_lane_block_sweep(*call, floor=floor, **kw)
+            out.append((v.cpu(), p.cpu(), d.cpu()))
+        torch.cuda.synchronize()
+        for a, b in zip(*out):
+            assert torch.equal(a, b), (fam, s, depth)
+
+
+@pytest.mark.parametrize("fam", ["sssp", "bfs"])
+def test_one_lane_kernel_is_kernel_1(card, fam):
+    eng = StructureAwareEngine(_graph(fam), A.REGISTRY[fam](), CFG)
+    P, c = eng.plan.num_blocks, CFG.block_size
+    values = _lane_inputs(eng, fam, 1, np.random.default_rng(4))[0]
+    rows = torch.arange(P, dtype=torch.int32, device="cuda")
+    ok = torch.ones(P, dtype=torch.bool, device="cuda")
+    kw = dict(block_size=c, n_live=eng.plan.n_live)
+    lv = torch.from_numpy(values.copy()).cuda()
+    lp, ld = torch.zeros(P, 1, 1).cuda(), torch.zeros(P, 1, 1).cuda()
+    kb.lane_block_sweep(A.LANE_FAMILIES[fam](), eng.plan.graph.n, eng._ed,
+                        lv, torch.zeros_like(lv), rows, ok, lp, ld,
+                        torch.zeros(1, dtype=torch.bool, device="cuda"),
+                        kb.make_lane_scratch(eng._ed, c, 1), **kw)
+    sv = torch.from_numpy(values[:, 0].copy()).cuda()
+    sp, sd = torch.zeros(P, 1).cuda(), torch.zeros(P, 1).cuda()
+    kb.block_sweep(eng.program, eng.plan.graph.n, eng._ed, sv, rows, ok, sp,
+                   sd, kb.make_scratch(eng._ed, c), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(lv[:, 0], sv)
+    assert torch.equal(lp.view(P, 1), sp) and torch.equal(ld.view(P, 1), sd)
+
+
+@pytest.mark.parametrize("s", [1, 4])
+def test_service_on_card_matches_cpu(card, s):
+    """A query service on the card answers like the same service on the
+    CPU, bitwise, through the lane kernel (1l at S = 1, 1lm at S = 4)."""
+    from repro_torch.serve import Query, QueryService
+    from repro_torch.stream import StreamingEngine, synthetic_stream
+    g = G.powerlaw_graph(6000, 8, seed=5, weighted=True)
+    cfg = EngineConfig(block_size=128, width=8, t2=1e-9, subblocks=s)
+    batch = synthetic_stream(g, 1, 200, seed=7, delete_frac=0.3,
+                             weighted=True)[0]
+    answers = []
+    kb.lane_block_sweep.launches = kb.masked_lane_block_sweep.launches = 0
+    for dev in ("cuda", "cpu"):
+        svc = QueryService(StreamingEngine(g, A.sssp(0), cfg, device=dev),
+                           max_lanes=4)
+        for src in (1, 50, 700):
+            svc.submit(Query(kind="sssp", source=src))
+        svc.submit(Query(kind="bfs", source=9))
+        svc.ingest(batch)
+        svc.submit(Query(kind="sssp", source=2))
+        answers.append([(r.epoch, r.iterations, r.values)
+                        for r in svc.run_pending()])
+    assert (kb.lane_block_sweep.launches if s == 1
+            else kb.masked_lane_block_sweep.launches) > 0
+    for (ea, ia, va), (eb, ib, vb) in zip(*answers):
+        assert (ea, ia) == (eb, ib) and np.array_equal(va, vb)

@@ -72,6 +72,7 @@ def test_kernel_link_bits_are_the_source_bits():
     assert f"#define LINK_HEAD {kb.LINK_HEAD:#x}" in src
     assert f"#define MAX_SLOTS {kb.MAX_SLOTS}" in src
     assert f"#define MAX_BLOCK {kb.MAX_BLOCK}" in src
+    assert f"#define MAX_LANES {kb.MAX_LANES}" in src
 
 
 def test_default_device_needs_a_card(monkeypatch):
@@ -81,7 +82,7 @@ def test_default_device_needs_a_card(monkeypatch):
         StructureAwareEngine(g, TA.pagerank())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BaselineEngine(g, TA.pagerank())
-    from repro_torch import quickstart, streaming_graph
+    from repro_torch import graph_service, quickstart, streaming_graph
     from repro_torch.stream import StreamingEngine
     with pytest.raises(RuntimeError, match="no CUDA device"):
         quickstart.main(["--n", "300"])
@@ -89,6 +90,8 @@ def test_default_device_needs_a_card(monkeypatch):
         StreamingEngine(g, TA.pagerank())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         streaming_graph.main(["--n", "300"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graph_service.main(["--n", "300"])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
