@@ -6,7 +6,8 @@
 Phases (any failed check exits non-zero; nothing is caught and passed over):
 
 1. Device: the card's name and power limit, torch/CUDA versions, and the
-   build of the block-sweep kernel from csrc/ (seconds, ptxas report).
+   build of the kernels from csrc/ (block_sweep.cu, segment_combine.cu, in
+   parallel; seconds, ptxas report).
 2. Kernels vs plain version: the kernel on the card and ``block_sweep_ref``
    on CPU copies of the same inputs, for the hub block plus 64 seeded random
    blocks, as one slate at depth 1 and as one-slot chains at depth 8.
@@ -24,14 +25,16 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       and a CC run at n = 2^21 would not fit the time limit beside phases
       3-4.
    d. Kernels 1l and 1lm (the lane sweep of query serving) at L = 8 lanes
-      on the phase-3 graphs: the k_sssp arithmetic on the SSSP graph, held
-      against the plain version on the card (min is exact in any order),
+      on the phase-3 graphs: the k_sssp and k_bfs arithmetic on the SSSP
+      graph, held against the plain version on the card (min is exact in
+      any order),
       and the k_ppr arithmetic on the PageRank graph, held against the
       plain version on CPU copies (its sum order is the CPU's index_add_).
       1lm runs over S = 8 coverage with seeded (P, S, L) psd and two lanes
       done. A one-lane k_sssp sweep must equal kernel 1's sssp sweep
       bitwise.
-   Then the times of one full cold sweep of every block (kernel, plain
+   Then the times of one full cold sweep of every block of the PageRank
+   graph (kernel, plain
    version on the card, and a library yardstick that the port never calls)
    beside the least time the card could take for it: kernel 1, kernel 1m
    with every sub-block live and with about 1/S live, kernel 1 on the
@@ -48,8 +51,9 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    atol=2e-3/n, and the sweep kernel must have launched on the main path.
 4. Streaming with hierarchical partitions: a StreamingEngine (S = 8,
    StreamConfig() defaults) over PageRank on the phase-3 PageRank graph,
-   bootstrapped by a cold run, then three synthetic_stream batches (10
-   edits, 200 edits, 200 edits with deletes). After each batch the warm
+   bootstrapped by a cold run, then two synthetic_stream batches (10
+   edits, 200 edits with deletes; a third, of 200 edits without deletes,
+   went for the time limit). After each batch the warm
    values must agree with BaselineEngine on the mutated graph (rtol=1e-4,
    atol=2e-3/n). Then SSSP with deletes (three batches of 200 edits) on a
    weighted powerlaw_graph, bitwise equal to the baseline after each
@@ -72,15 +76,45 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       an SSSP lane batch at n = 2^21 takes ~9,400 supersteps (200-260 s
       on the card), more than the time limit leaves.
    b. Kernel 1lm: QueryService(max_lanes=8) over phase 4's SSSP stream
-      (n = 2^19, S = 8, after its batches): an SSSP batch and a BFS batch
-      on the pinned epoch, then an SSSP wave on the epoch after the ingest,
-      each bitwise equal to Bellman-Ford on the card over its epoch's
-      graph (float path sums are order-fixed, so the fixpoint is unique).
+      (n = 2^19, S = 8, after its batches): an SSSP batch on the pinned
+      epoch, then an SSSP wave on the epoch after the ingest, each bitwise
+      equal to Bellman-Ford on the card over its epoch's graph (float path
+      sums are order-fixed, so the fixpoint is unique). Its BFS batch
+      moved to 5c: on this stream it takes 11,194 supersteps (~124 s).
+   c. Kernel 1lm on BFS lanes: QueryService(max_lanes=8) over a new SSSP
+      stream (S = 8) on weighted powerlaw_graph(2^17) (BFS_STREAM_N, cut
+      from 5b's 2^19 for the time limit; 1,776 supersteps, ~31 s, at
+      2^18): 8 BFS queries
+      pinned across an ingest, bitwise equal to Bellman-Ford with unit
+      weights on the card over the pinned epoch's graph.
    Each batch prints its family, lanes, supersteps (batch and per lane),
    run and wait seconds, host syncs, lane-kernel launches and counters;
    each phase its pin's host copy time, snapshots_preserved,
    stale_answers and queries/s. The lane kernels must have launched.
-6. One JSON line of kernel rows, the card line, and the final ok line.
+6. The distributed engine (DistributedEngine over the group-padded
+   storage) at block_size 4096 (DIST_BLOCK, the repo's own block for this
+   engine at pod scale: at 512 the PageRank graph's hot group alone would
+   take ~99 GB of padding).
+   a. Kernels 2 and 3 (segmented min/max and sum) called as the block
+      processor calls them: on a row's valid prefix (its true edges),
+      through the group's head lists of those prefixes. On the hot group's
+      hub row and 16 seeded random rows of each storage group of the
+      PageRank graph, with the PageRank (sum), SSSP (min) and CC (max)
+      arithmetic on mid-run states: bitwise against the plain version on
+      CPU copies. Then the times of one call on the hub row and of one
+      pass over every cold row (kernel, plain version on the card, for the
+      cold pass the sum's alone, library yardstick) beside their bound.
+   b. Runs through DistributedEngine.run() on an NCCL process group of one
+      rank on cuda:0 (FileStore): PageRank on phase 3's graph (width 128,
+      T2_PAGERANK), within rtol=1e-4, atol=2e-3/n of phase 3's baseline;
+      SSSP on weighted powerlaw_graph(2^20) and CC on powerlaw_graph(2^18)
+      (cut from 2^21 for the time limit), bitwise equal to BaselineEngine
+      on the same graph. Before its run, the SSSP (CC) engine's storage
+      goes through 6a's check for min (max) on its hub row and seeded
+      rows. Each run prints supersteps, wall seconds, host syncs,
+      combine-kernel launches, counters and the padded storage bytes on
+      the card; each run's combine kernel must have launched.
+7. One JSON line of kernel rows, the card line, and the final ok line.
 
 It needs the repository's src/ beside it, and a CUDA card: without either it
 exits non-zero before printing any result.
@@ -91,6 +125,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -109,11 +144,17 @@ SUB = 8  # sub-blocks per block on the masked paths
 MUTATE_N = 1 << 18  # the mutated-layout check's graph (phase 2c)
 MUTATE_EDITS = 10000
 SSSP_STREAM_N = 1 << 19  # phase 4's SSSP stream
+BFS_STREAM_N = 1 << 17  # phase 5c's stream
 STREAM_CAP = 8000  # superstep cap of one streaming run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 LANES = 8  # query lanes per batch (phase 2d and the serving phases)
 SERVE_T2 = 1e-8  # the reference demo's (examples/graph_service.py)
 SERVE_CAP = 20000  # superstep cap of one lane batch
+SOURCES = ("block_sweep", "segment_combine")  # csrc/*.cu
+DIST_BLOCK = 4096  # the distributed engine's block (launch/dryrun.py)
+DIST_N = 1 << 20  # phase 6b's SSSP graph
+DIST_CC_N = 1 << 18  # phase 6b's CC graph (symmetrized: twice the edges)
+DIST_ROWS = 16  # phase 6a's seeded rows per storage group
 SEED = 0
 DEV = "cuda"
 
@@ -743,10 +784,194 @@ def launch_counts():
 
 def zero_counts():
     from repro_torch.kernels import block_sweep as kb
+    from repro_torch.kernels import segment as ks
     kb.block_sweep.launches = 0
     kb.masked_block_sweep.launches = 0
     kb.lane_block_sweep.launches = 0
     kb.masked_lane_block_sweep.launches = 0
+    for op in ("sum", "min", "max"):
+        getattr(ks, f"edge_block_{op}").launches = 0
+
+
+def segment_counts() -> dict:
+    from repro_torch.kernels import segment as ks
+    return {op: getattr(ks, f"edge_block_{op}").launches
+            for op in ("sum", "min", "max")}
+
+
+SEGMENT_PROGRAMS = ("sum", "pagerank"), ("min", "sssp"), ("max", "cc")
+
+
+def segment_layouts(eng):
+    """The head lists of every storage group of ``eng``, built as
+    make_block_processor builds them: over each row's valid prefix."""
+    from repro_torch.kernels import segment as ks
+    c = eng.plan.block_size
+    return {k: ks.segment_layout(st.dst_local, c, st.edges)
+            for k, st in eng._stores.items()}
+
+
+def segment_msg(program, st, r, values, aux):
+    """Row r's messages over its valid prefix (its true edges): edge_map of
+    the gathered values, as the block processor computes them."""
+    e = int(st.edges[r])
+    src = st.src[r, :e]
+    return program.edge_map(values.index_select(0, src),
+                            aux.index_select(0, src), st.w[r, :e])
+
+
+def segment_check(label, eng, layouts, ops, rng):
+    """Phase 6a's check: each combine of ``ops`` ((combine, program name)
+    pairs) on the hub row and DIST_ROWS seeded random rows of each storage
+    group of ``eng``, called as the block processor calls it (the row's
+    valid prefix through the group's prefix head lists), on a mid-run
+    state, against the plain version on CPU copies: bitwise. Returns the
+    largest absolute difference by combine."""
+    import numpy as np
+    import torch
+    from repro_torch.core import algorithms as A
+    from repro_torch.kernels import segment as ks
+    c, stores = eng.plan.block_size, eng._stores
+    aux = torch.as_tensor(eng.aux).to(DEV)
+    hot, cold = stores["hot"], stores["cold"]
+    hub = int(np.argmax(hot.edges))
+    picks = {"hot": [hub] + sorted(rng.choice(
+                 np.setdiff1d(np.arange(hot.num_blocks), [hub]),
+                 min(DIST_ROWS, hot.num_blocks - 1), replace=False)),
+             "cold": sorted(rng.choice(cold.num_blocks,
+                                       min(DIST_ROWS, cold.num_blocks),
+                                       replace=False))}
+    errs = {}
+    for op, name in ops:
+        prog = A.REGISTRY[name]()
+        kernel = getattr(ks, f"edge_block_{op}")
+        plain = getattr(ks, f"edge_block_{op}_ref")
+        extra = () if op == "sum" else (float(prog.identity),)
+        values = torch.as_tensor(mid_run_state(name, eng._values_len,
+                                               rng)).to(DEV)
+        errs[op], checked = 0.0, 0
+        for key, rows in picks.items():
+            st = stores[key]
+            for r in rows:
+                e = int(st.edges[r])
+                m = segment_msg(prog, st, r, values, aux)
+                d = st.dst_local[r, :e]
+                got = kernel(m, d, c, *extra, layout=layouts[key],
+                             row=r).cpu()
+                want = plain(m.cpu(), d.cpu(), c, *extra)
+                errs[op] = max(errs[op], float((got - want).abs().max()))
+                if not torch.equal(got, want):
+                    fail(f"6a {label} {op} {key} row {r}: kernel not "
+                         "bitwise plain")
+                checked += e
+        log(f"[kernel] 6a edge_block_{op} ({name} arithmetic on the {label} "
+            f"storage): kernel vs plain (cpu) bitwise on hub row {hub} "
+            f"({int(hot.edges[hub])} edges) + {len(picks['hot']) - 1} hot "
+            f"and {len(picks['cold'])} cold rows, each row's valid prefix "
+            f"through the group's prefix head lists ({checked} slots)")
+    return errs
+
+
+def segment_times(eng, layouts, rng):
+    """Phase 6a's times on the PageRank graph's storage: each combine once
+    on the hub row and once over every cold row (each row's valid prefix,
+    as the path calls it): kernel, plain version on the card (for the cold
+    pass the sum's alone, whose order it defines: ~10 s), library yardstick
+    and bound. Returns (hub times, cold times) by combine."""
+    import numpy as np
+    import torch
+    from repro_torch.core import algorithms as A
+    from repro_torch.kernels import segment as ks
+    c, stores = eng.plan.block_size, eng._stores
+    aux = torch.as_tensor(eng.aux).to(DEV)
+    hot, cold = stores["hot"], stores["cold"]
+    hub = int(np.argmax(hot.edges))
+    cold_e = [int(e) for e in cold.edges]
+    hub_t, cold_t = {}, {}
+    for op, name in SEGMENT_PROGRAMS:
+        prog = A.REGISTRY[name]()
+        kernel = getattr(ks, f"edge_block_{op}")
+        plain = getattr(ks, f"edge_block_{op}_ref")
+        extra = () if op == "sum" else (float(prog.identity),)
+        ident = float(prog.identity)
+        reduce = {"min": "amin", "max": "amax"}.get(op)
+        values = torch.as_tensor(mid_run_state(name, eng._values_len,
+                                               rng)).to(DEV)
+
+        def library(m, dl):
+            if op == "sum":
+                return torch.zeros(c, device=DEV).index_add_(0, dl, m)
+            return torch.full((c,), ident, device=DEV).scatter_reduce_(
+                0, dl, m, reduce=reduce)
+
+        e = int(hot.edges[hub])
+        m = segment_msg(prog, hot, hub, values, aux)
+        d = hot.dst_local[hub, :e]
+        dl = d.long()
+        hub_t[op] = dict(
+            ms=cuda_ms(lambda: kernel(m, d, c, *extra, layout=layouts["hot"],
+                                      row=hub), 20),
+            plain_ms=cuda_ms(lambda: plain(m, d, c, *extra), 1,
+                             warmup=False),
+            library_ms=cuda_ms(lambda: library(m, dl), 20),
+            bound_ms=(e * 8 + c * 4) / HBM_BYTES_PER_S * 1e3)
+        del m, d, dl
+        ms = [segment_msg(prog, cold, r, values, aux)
+              for r in range(cold.num_blocks)]
+        ds = [cold.dst_local[r, :e] for r, e in enumerate(cold_e)]
+        dls = [d.long() for d in ds]
+        cold_t[op] = dict(
+            ms=cuda_ms(lambda: [kernel(m, d, c, *extra,
+                                       layout=layouts["cold"], row=r)
+                                for r, (m, d) in enumerate(zip(ms, ds))], 3),
+            plain_ms=cuda_ms(lambda: [plain(m, d, c, *extra)
+                                      for m, d in zip(ms, ds)], 1,
+                             warmup=False) if op == "sum" else None,
+            library_ms=cuda_ms(lambda: [library(m, dl)
+                                        for m, dl in zip(ms, dls)], 3),
+            bound_ms=(sum(cold_e) * 8 + cold.num_blocks * c * 4)
+            / HBM_BYTES_PER_S * 1e3)
+        del ms, ds, dls
+        for label, t, slots in (("hub row", hub_t[op], e),
+                                (f"{cold.num_blocks} cold rows", cold_t[op],
+                                 sum(cold_e))):
+            plain_ms = ("not measured" if t["plain_ms"] is None
+                        else f"{t['plain_ms']!r} ms")
+            log(f"[kernel] 6a edge_block_{op} on the {label} ({slots} "
+                f"edges, C={c}): kernel {t['ms']!r} ms, plain {plain_ms}, "
+                f"library {t['library_ms']!r} ms, "
+                f"bound {t['bound_ms']!r} ms (8 B per edge + 4 B per "
+                f"destination at {HBM_BYTES_PER_S:.3g} B/s)")
+    return hub_t, cold_t
+
+
+def dist_run(label, eng, build_s, op, want, exact):
+    """Phase 6b: run a built DistributedEngine with the counts zeroed just
+    before, check that its combine kernel launched and its values against
+    the baseline's. Returns the launches."""
+    import numpy as np
+    import torch
+    zero_counts()
+    torch.cuda.synchronize()
+    res = eng.run()
+    torch.cuda.synchronize()
+    n = segment_counts()
+    m = res.metrics
+    log(f"[dist] {label}: world={eng.world} bpd={eng.bpd} P="
+        f"{eng.plan.num_blocks} hot-born={eng.plan.barrier_block} padded "
+        f"storage {eng.storage_bytes()} B on the card (built in {build_s:.1f} "
+        f"s): supersteps={m.iterations} converged={m.converged} "
+        f"wall_s={m.wall_time_s!r} host_syncs={res.host_syncs} "
+        f"launches={n} updates={m.updates} loads={m.block_loads} "
+        f"bytes={m.bytes_loaded}")
+    if n[op] == 0:
+        fail(f"{label}: edge_block_{op} never launched")
+    if not m.converged:
+        fail(f"{label}: did not converge")
+    if not np.all(np.isfinite(res.values)) or res.values.shape != want.shape:
+        fail(f"{label}: values not finite of shape {want.shape}")
+    agree(label, res.values, want, exact)
+    return n[op]
 
 
 def agree(name, got, want, exact):
@@ -819,6 +1044,81 @@ def stream_phase(label, g, program, cfg, batches, exact):
     return masked, se
 
 
+def distributed_phase(g, pr_base, rng, t_start):
+    """Phase 6 on a process group of one rank (NCCL on the card) over a
+    FileStore: 6a on the PageRank engine's storage, then 6b's runs, each
+    engine's storage checked by 6a's check before its run. Returns the
+    runs' combine launches, 6a's errors, hub-row and cold-pass times."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import graph as G
+    from repro_torch.core.baseline import BaselineEngine
+    from repro_torch.core.distributed import DistributedEngine
+    from repro_torch.core.engine import EngineConfig
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+    dcfg = dict(block_size=DIST_BLOCK, width=WIDTH, max_iterations=SA_CAP)
+    launches = {}
+
+    def build(gd, prog, t2):
+        t0 = time.perf_counter()
+        eng = DistributedEngine(gd, prog, EngineConfig(t2=t2, **dcfg),
+                                device=DEV)
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if DEV == "cuda" else "gloo", rank=0, world_size=1,
+            store=dist.FileStore(str(Path(tmp) / "store"), 1))
+        try:
+            t0 = time.perf_counter()
+            eng, build_s = build(g, A.pagerank(), T2_PAGERANK)
+            hot, cold = eng._stores["hot"], eng._stores["cold"]
+            log(f"[dist] pagerank engine on n={g.n} built in {build_s:.1f} "
+                f"s: hot group {hot.num_blocks} x {hot.capacity} slots "
+                f"({int(hot.edges.sum())} true edges, {int(hot.edges.max())} "
+                f"in the hub row), cold group {cold.num_blocks} x "
+                f"{cold.capacity} ({int(cold.edges.sum())} true edges), "
+                f"padded storage {eng.storage_bytes()} B")
+            layouts = segment_layouts(eng)
+            errs = segment_check("pagerank graph", eng, layouts,
+                                 SEGMENT_PROGRAMS, rng)
+            hub_t, cold_t = segment_times(eng, layouts, rng)
+            del layouts, hot, cold
+            log(f"[kernel] 6a done in {time.perf_counter() - t0:.1f} s")
+            log(f"[time] phase 6b starts at "
+                f"{time.perf_counter() - t_start:.1f} s")
+            launches["sum"] = dist_run("pagerank distributed", eng, build_s,
+                                       "sum", pr_base, exact=False)
+            del eng
+            for op, prog, n in (("min", A.sssp(0), DIST_N),
+                                ("max", A.cc(), DIST_CC_N)):
+                gd = G.powerlaw_graph(n, avg_deg=AVG_DEG, seed=2,
+                                      weighted=True)
+                cfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=T2)
+                base = BaselineEngine(gd, prog, cfg, frontier=False,
+                                      device=DEV).run(max_iterations=BASE_CAP)
+                if not base.metrics.converged:
+                    fail(f"{prog.name} baseline on n={gd.n} did not converge")
+                eng, build_s = build(gd, prog, T2)
+                label = f"{prog.name} graph (n={gd.n})"
+                got = segment_check(label, eng, segment_layouts(eng),
+                                    [(op, prog.name)], rng)
+                errs[op] = max(errs[op], got[op])
+                launches[op] = dist_run(
+                    f"{prog.name} distributed on powerlaw_graph(n={gd.n})",
+                    eng, build_s, op, base.values, exact=True)
+                del eng
+        finally:
+            dist.destroy_process_group()
+    log("[check] distributed runs: pagerank within rtol=1e-4, atol=2e-3/n of "
+        "the baseline; sssp and cc bitwise equal to the baseline")
+    return launches, errs, hub_t, cold_t
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -845,10 +1145,14 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
-    lib_path = _build.build("block_sweep")
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(_build.build, SOURCES))
     build_s = time.perf_counter() - t0
-    log(f"[build] block_sweep.cu -> {lib_path.name} in {build_s:.1f} s")
-    log(Path(str(lib_path) + ".log").read_text().strip())
+    for name, lib_path in zip(SOURCES, libs):
+        log(f"[build] {name}.cu -> {lib_path.name} (all built in "
+            f"{build_s:.1f} s)")
+        log(Path(str(lib_path) + ".log").read_text().strip())
 
     # -- the graphs and engines of the main path -----------------------------
     t0 = time.perf_counter()
@@ -889,14 +1193,16 @@ def main() -> int:
             f"{name} kernel 1m S={SUB}", sa.program, ed8, c, n_live, n_total,
             values, rng, floor=floor,
             psd0=sub_mask_psd(rng, sa.plan.num_blocks, SUB, floor, 0.5)))
-        times[name] = time_full_sweep(f"{name} kernel 1", sa.program,
-                                      sa.edge_state, c, n_live, n_total,
-                                      sa.values0)
-        for frac in (1.0, 1.0 / SUB):
-            times[(name, frac)] = time_full_sweep(
-                f"{name} kernel 1m S={SUB}, live fraction {frac!r}",
-                sa.program, ed8, c, n_live, n_total, sa.values0, floor=floor,
-                psd0=sub_mask_psd(rng, sa.plan.num_blocks, SUB, floor, frac))
+        if name == "pagerank":  # the graph the kernels line times
+            times[name] = time_full_sweep(f"{name} kernel 1", sa.program,
+                                          sa.edge_state, c, n_live, n_total,
+                                          sa.values0)
+            for frac in (1.0, 1.0 / SUB):
+                times[(name, frac)] = time_full_sweep(
+                    f"{name} kernel 1m S={SUB}, live fraction {frac!r}",
+                    sa.program, ed8, c, n_live, n_total, sa.values0,
+                    floor=floor, psd0=sub_mask_psd(rng, sa.plan.num_blocks,
+                                                   SUB, floor, frac))
         del ed8
     # 2c: a mutated layout (appends, kill holes and rebuilt runs)
     t0 = time.perf_counter()
@@ -949,6 +1255,7 @@ def main() -> int:
     done = np.zeros(LANES, bool)
     done[[1, 5]] = True
     for name, prog, plain_dev in (("sssp", A.k_source_sssp(), DEV),
+                                  ("sssp", A.k_source_bfs(), DEV),
                                   ("pagerank", A.k_personalized_pagerank(),
                                    "cpu")):
         sa = engines[name][0]
@@ -967,7 +1274,7 @@ def main() -> int:
             f"{label} kernel 1lm S={SUB}", prog, ed8, c, n_live, n_total,
             values, vconst, rng, plain_dev, floor=floor, psd0=psd8,
             lane_done=done))
-        if name == "sssp":  # the kernels line times the k_sssp sweeps
+        if prog.name == "k_sssp":  # the kernels line times these sweeps
             times["1l"] = time_lane_sweep(
                 f"{label} kernel 1l", prog, sa.edge_state, c, n_live,
                 n_total, values, vconst)
@@ -1034,6 +1341,7 @@ def main() -> int:
     sa_r = results[("pagerank", "structure-aware")]
     base_r = results[("pagerank", "baseline")]
     agree("pagerank", sa_r.values, base_r.values, exact=False)
+    pr_base = base_r.values  # phase 6b's reference
     log("[check] sssp fixpoints bitwise equal; pagerank within rtol=1e-4, "
         f"atol=2e-3/n; gain: pagerank "
         f"{base_r.metrics.updates / max(sa_r.metrics.updates, 1):.2f}x "
@@ -1047,7 +1355,6 @@ def main() -> int:
     scfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=T2_PAGERANK,
                         subblocks=SUB, max_iterations=STREAM_CAP)
     batches = [synthetic_stream(g, 1, 10, seed=11, delete_frac=0.0)[0],
-               synthetic_stream(g, 1, 200, seed=12, delete_frac=0.0)[0],
                synthetic_stream(g, 1, 200, seed=13, delete_frac=0.2)[0]]
     masked_launches, se = stream_phase("pagerank stream", g, A.pagerank(),
                                        scfg, batches, exact=False)
@@ -1094,9 +1401,7 @@ def main() -> int:
     se = se_sssp
     gb = se.current_graph()
     waves = [("sssp", [int(v) for v in qrng.choice(gb.n, LANES,
-                                                   replace=False)]),
-             ("bfs", [int(v) for v in qrng.choice(gb.n, LANES,
-                                                  replace=False)])]
+                                                   replace=False)])]
     wave1 = [("sssp", [int(v) for v in qrng.choice(gb.n, LANES,
                                                    replace=False)])]
     masked_lane_launches = serve_phase(
@@ -1107,7 +1412,37 @@ def main() -> int:
         fail("5b: the masked lane kernel never launched on the serving path")
     del se, se_sssp
 
-    # -- phase 6: the kernels line, the card, and the result -----------------
+    # -- phase 5c: BFS lanes at S = 8 through kernel 1lm ---------------------
+    log(f"[time] phase 5c starts at {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    gb = G.powerlaw_graph(BFS_STREAM_N, avg_deg=AVG_DEG, seed=2,
+                          weighted=True)
+    se = StreamingEngine(gb, A.sssp(0), EngineConfig(
+        block_size=BLOCK, width=WIDTH, t2=T2, subblocks=SUB,
+        max_iterations=SA_CAP), device=DEV)
+    init = se.initial_result.metrics
+    log(f"[serve] 5c: SSSP stream S={SUB} on powerlaw_graph(n={gb.n}) built "
+        f"and bootstrapped in {time.perf_counter() - t0:.1f} s: "
+        f"P={se.engine.plan.num_blocks} iterations={init.iterations} "
+        f"converged={init.converged}")
+    if not init.converged:
+        fail("5c: the stream's bootstrap did not converge")
+    n1lm = serve_phase(
+        "5c", se, [("bfs", [int(v) for v in qrng.choice(gb.n, LANES,
+                                                        replace=False)])],
+        [], synthetic_stream(gb, 1, 200, seed=23, delete_frac=0.2,
+                             weighted=True)[0])[1]
+    if n1lm == 0:
+        fail("5c: the masked lane kernel never launched on the serving path")
+    masked_lane_launches += n1lm
+    del se
+
+    # -- phase 6: the distributed engine at block 4096 ------------------------
+    log(f"[time] phase 6 starts at {time.perf_counter() - t_start:.1f} s")
+    dist_launches, seg_errs, hub_t, cold_t = distributed_phase(
+        g, pr_base, rng, t_start)
+
+    # -- phase 7: the kernels line, the card, and the result -----------------
     t, tm = times["pagerank"], times[("pagerank", 1.0)]
     tl, tlm = times["1l"], times[("1lm", 1.0)]
     rows = [
@@ -1136,7 +1471,15 @@ def main() -> int:
              ms=tlm["ms"], plain_ms=tlm["plain_ms"],
              bound_ms=tlm["bound_ms"], bound_by="bytes",
              library_ms=tlm["library_ms"]),
-    ]
+    ] + [dict(name=f"edge_block_{op}", route="cuda",
+              source="src/repro_torch/csrc/segment_combine.cu",
+              replaces=("src/repro/kernels/spmv.py:25" if op == "sum" else
+                        "src/repro/kernels/block_sweep.py:56"),
+              launches=dist_launches[op], max_abs_err=seg_errs[op],
+              ms=hub_t[op]["ms"], plain_ms=hub_t[op]["plain_ms"],
+              bound_ms=hub_t[op]["bound_ms"], bound_by="bytes",
+              library_ms=hub_t[op]["library_ms"])
+         for op in ("sum", "min", "max")]
     log(f"[done] in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -72,13 +72,14 @@ from repro_torch.core import state as state_lib
 from repro_torch.core.algorithms import LaneProgram, VertexProgram
 from repro_torch.core.graph import Graph, symmetrize
 from repro_torch.core.metrics import Metrics, Timer, block_io_bytes
-from repro_torch.core.partition import (TILE, PartitionPlan, TiledStorage,
-                                        build_plan)
+from repro_torch.core.partition import (TILE, EdgeStorage, PartitionPlan,
+                                        TiledStorage, build_plan)
 from repro_torch.core.repartition import RepartitionState
 from repro_torch.core.schedule import (Scheduler, Selection,
                                        make_device_select, pick_width,
                                        width_ladder)
 from repro_torch.kernels import block_sweep as kb
+from repro_torch.kernels import segment as kseg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -342,6 +343,118 @@ def make_lane_processor(program: LaneProgram, block_size: int, n_live: int,
     return process_one, process_iterated
 
 
+def _combine_local(program: VertexProgram, msg: torch.Tensor,
+                   dst_local: torch.Tensor, block_size: int,
+                   layout: kseg.SegmentLayout | None = None,
+                   row: int = 0) -> torch.Tensor:
+    """The segmented combine of one block row (kernels 3 and 2): the
+    reference's ``_combine_local(use_pallas=True)``. ``layout``/``row``
+    name the storage group's head lists for ``dst_local``."""
+    kw = dict(layout=layout, row=row)
+    if program.combine == "sum":
+        return kseg.edge_block_sum(msg, dst_local, block_size, **kw)
+    fn = (kseg.edge_block_min if program.combine == "min"
+          else kseg.edge_block_max)
+    return fn(msg, dst_local, block_size, float(program.identity), **kw)
+
+
+def make_block_processor(program: VertexProgram, store: EdgeStorage,
+                         aux: torch.Tensor, block_size: int, n_live: int,
+                         n_total: int):
+    """Returns (process_one, process_iterated, gids): the pull-mode update
+    for one block row of one storage group, whose (B, E) arrays are tensors
+    on the device of ``aux`` (``PartitionPlan.group_storage``). The
+    gather, ``edge_map``, the validity mask and ``apply`` are plain torch
+    ops, as the reference computes them outside any kernel; the combine
+    goes through the segmented-combine kernels, with the group's head lists
+    built once here. ``gids`` (host) maps a row to its global block id, so
+    ``base`` is known on the host.
+
+    * ``process_one(values, row) -> (base, new, psd, dmax)``: one pass,
+      functional like the reference's;
+    * ``process_iterated(values, row, t_inner)``: ``t_inner`` block-local
+      Gauss-Seidel passes, each reading the previous one's writes, and the
+      (mean, max) delta against the block's values before the first pass.
+      It writes the passes into ``values`` in place (the reference returns
+      the block and its caller writes it) and returns the same tuple, with
+      ``new`` a view of the block.
+
+    A row's padded tail (``valid`` False past its true edges) is left out,
+    and with it the reference's ``where(valid, msg, identity)``: the tail's
+    messages are the identity, which leaves every run partial and every
+    destination's fold as it was (x + 0 = x for the sums, whose accumulator
+    starts at +0 and so is never -0; min/max exactly), so a row costs its
+    true edges rather than the group's capacity, with the same result
+    bits."""
+    src, dstl, ew = store.src, store.dst_local, store.w
+    gids = np.asarray(store.block_ids, dtype=np.int64)
+    dev, c = aux.device, block_size
+    ends = _valid_prefix(store)
+    layout = (kseg.segment_layout(dstl, c, ends) if dev.type == "cuda" and
+              store.num_blocks else None)
+    reads_aux = program.aux_fn is not None  # the others' edge_map ignores it
+    lanes = torch.arange(c, device=dev)
+
+    def live(base: int) -> int:
+        return min(max(n_live - base, 0), c)
+
+    def update(values, row):
+        e = int(ends[row])
+        e_src = src[row, :e]
+        msg = program.edge_map(values.index_select(0, e_src),
+                               aux.index_select(0, e_src) if reads_aux
+                               else None, ew[row, :e])
+        agg = _combine_local(program, msg, dstl[row, :e], c, layout, row)
+        base = int(gids[row]) * c
+        old = values[base:base + c]
+        new = program.apply(old, agg, n_total)
+        if live(base) < c:
+            new = torch.where(lanes < live(base), new, old)
+        return base, new
+
+    counts: dict[int, torch.Tensor] = {}
+
+    def deltas(base, old, new):
+        delta = program.sd_delta(old, new)
+        if live(base) < c:
+            delta = torch.where(lanes < live(base), delta, 0.0)
+        # the live count as a device scalar, made once per value: a true
+        # division (torch divides by a host scalar through its reciprocal),
+        # and no host-to-device copy, which would stall the queue per slot
+        k = max(live(base), 1)
+        if k not in counts:
+            counts[k] = torch.tensor(float(k), device=dev)
+        # (mean, max) per-block deltas: mean is the paper's PSD; max feeds
+        # the sound staleness bound
+        return kb.pairwise_sum(delta) / counts[k], delta.max()
+
+    def process_one(values, row):
+        base, new = update(values, row)
+        return (base, new) + deltas(base, values[base:base + c], new)
+
+    def process_iterated(values, row, t_inner):
+        base = int(gids[row]) * c
+        old = values[base:base + c].clone()
+        for _ in range(t_inner):
+            values[base:base + c] = update(values, row)[1]
+        new = values[base:base + c]
+        return (base, new) + deltas(base, old, new)
+
+    return process_one, process_iterated, gids
+
+
+def _valid_prefix(store: EdgeStorage) -> np.ndarray:
+    """The rows' edge counts, (B,), checked to be exactly each row's valid
+    prefix (the padded layout, also as handed over by interop)."""
+    ends = np.asarray(store.edges, dtype=np.int64)
+    valid = store.valid
+    for r, e in enumerate(ends.tolist()):
+        if not (bool(valid[r, :e].all()) and not bool(valid[r, e:].any())):
+            raise ValueError(f"storage row {r}: valid is not the prefix of "
+                             f"its {e} edges")
+    return ends
+
+
 def coupling_from_counts(block_edge_counts: np.ndarray,
                          program: VertexProgram | LaneProgram,
                          block_size: int) -> np.ndarray:
@@ -371,7 +484,9 @@ class StructureAwareEngine:
     _COUPLING_CHUNK = 16  # coupling rows
 
     def __init__(self, graph: Graph, program: VertexProgram,
-                 config: EngineConfig = EngineConfig(), device="cuda"):
+                 config: EngineConfig = EngineConfig(), device="cuda",
+                 **engine_kw):
+        config = self._configure(config, **engine_kw)
         check_config(config)
         dev = resolve_device(device)
         g = symmetrize(graph) if program.needs_symmetric else graph
@@ -396,13 +511,14 @@ class StructureAwareEngine:
     def from_plan(cls, plan: PartitionPlan, program: VertexProgram,
                   config: EngineConfig, values0: np.ndarray, aux: np.ndarray,
                   coupling: np.ndarray, barrier_block: int,
-                  device="cuda") -> "StructureAwareEngine":
+                  device="cuda", **engine_kw) -> "StructureAwareEngine":
         """An engine over given state (see :mod:`repro_torch.interop`):
         ``values0`` permuted, dead-initialised and padded; ``aux`` permuted;
         the (P, P) coupling matrix, (P, P, S) at S > 1; the born hot
-        prefix."""
-        check_config(config)
+        prefix. ``engine_kw`` are a subclass's own keyword arguments."""
         self = cls.__new__(cls)
+        config = self._configure(config, **engine_kw)
+        check_config(config)
         self._setup(plan, program, config, resolve_device(device),
                     np.asarray(values0, np.float32),
                     np.asarray(aux, np.float32),
@@ -422,23 +538,33 @@ class StructureAwareEngine:
         self.aux = np.array(aux, dtype=np.float32)
         self.edge_counts = np.array(plan.unified.edges, dtype=np.int64)
         self.coupling_counts = coupling_counts
-        self._ed = edge_data(plan.unified, aux, plan.block_size,
-                             self._values_len, config.subblocks, device)
         self._coupling = np.array(coupling, dtype=np.float32)
         self._coupling_dev = torch.tensor(self._coupling, device=device)
-        self._proc = make_tiled_processor(program, self._ed,
-                                          plan.block_size, plan.n_live,
-                                          plan.graph.n, config.subblocks,
-                                          _f32(self._psd_floor()))
-        # the block owning each tile row (commits refresh fold metadata)
-        self._row_block = np.repeat(np.arange(plan.num_blocks),
-                                    plan.unified.tile_cnt)
+        self._setup_sweeps(aux)
         self._sweep_fns: dict = {}
         self._ladder = (width_ladder(config.width, config.min_width)
                         if config.adaptive else [config.width])
         # pad block for dispatch slots beyond the take counts (never ok)
         tile_cnt = plan.unified.tile_cnt
         self.pad_id = int(np.argmin(tile_cnt)) if tile_cnt.size else 0
+
+    def _configure(self, config: EngineConfig) -> EngineConfig:
+        """The configuration the engine runs with (a subclass pins fields
+        here, from its own keyword arguments)."""
+        return config
+
+    def _setup_sweeps(self, aux: np.ndarray) -> None:
+        """The device edge state and the block processors of the sweeps."""
+        plan, config = self.plan, self.config
+        self._ed = edge_data(plan.unified, aux, plan.block_size,
+                             self._values_len, config.subblocks, self.device)
+        self._proc = make_tiled_processor(self.program, self._ed,
+                                          plan.block_size, plan.n_live,
+                                          plan.graph.n, config.subblocks,
+                                          _f32(self._psd_floor()))
+        # the block owning each tile row (commits refresh fold metadata)
+        self._row_block = np.repeat(np.arange(plan.num_blocks),
+                                    plan.unified.tile_cnt)
 
     # -- schedule helpers ----------------------------------------------------
     def _psd_floor(self) -> float:

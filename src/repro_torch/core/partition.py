@@ -1,5 +1,5 @@
 """Activity-based initial partitioning (paper Alg. 1, §3.2); numpy copy of
-``repro.core.partition`` (single-device layout only).
+``repro.core.partition``.
 
 The vertices are sorted by active degree (descending), dead vertices moved to
 the tail, and the live prefix is chunked into fixed-size *blocks* (the paper's
@@ -8,21 +8,58 @@ contiguous vertex range and its in-edges are a contiguous CSC range — dynamic
 repartitioning later only re-labels blocks (barrier move / flag flip), never
 moves vertices, matching the paper's O(n) bookkeeping claim.
 
-Storage layout (:class:`TiledStorage`): every block's in-edges are chunked
-into fixed (TILE,)-wide tile rows, and each block owns a contiguous run of
-tile rows, so any block id is processed by one kernel while compute stays
-proportional to the block's true edge count. Padding is masked with a
-validity bit, so any combine (sum/min/max) stays exact.
+Storage layouts:
+
+  * unified tiled rows (:class:`TiledStorage`): every block's in-edges are
+    chunked into fixed (TILE,)-wide tile rows, and each block owns a
+    contiguous run of tile rows, so any block id is processed by one kernel
+    while compute stays proportional to the block's true edge count;
+  * per-group padded rows (:class:`EdgeStorage`, ``PartitionPlan.hot`` and
+    ``.cold``): blocks padded to a common edge capacity per *storage group*
+    (hot-born vs cold-born), the layout of the distributed engine. A group
+    pays its block count times its largest block's edges.
+
+Padding is masked with a validity bit in both layouts, so any combine
+(sum/min/max) stays exact.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
+import torch
 
 from repro_torch.core import degrees
 from repro_torch.core.graph import Graph, permute
 from repro_torch.core.metrics import block_io_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeStorage:
+    """Padded per-block in-edge arrays for one storage group.
+
+    Shapes: (num_blocks, capacity). ``src`` indexes the *permuted* vertex
+    space; ``dst_local`` is the destination offset within the block. The
+    plan's groups hold numpy arrays; the distributed engine's copy on its
+    device holds the four (B, E) arrays as tensors (``block_ids`` and
+    ``edges`` stay numpy).
+    """
+
+    block_ids: np.ndarray  # (B,) global block id of each row
+    src: np.ndarray  # (B, E) int32
+    dst_local: np.ndarray  # (B, E) int32
+    w: np.ndarray  # (B, E) float32
+    valid: np.ndarray  # (B, E) bool
+    edges: np.ndarray  # (B,) true edge count per block
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.block_ids.shape[0])
+
+    @property
+    def capacity(self) -> int:
+        return int(self.src.shape[1])
 
 
 TILE = 512  # tile width of the unified layout (edge slots per tile row)
@@ -129,6 +166,40 @@ class PartitionPlan:
         """Vertices per sub-block (block_size / subblocks, exact)."""
         return self.block_size // self.subblocks
 
+    # Group-padded storages are only consumed by the distributed engine (and
+    # its tests); built lazily so the single-device path never pays the
+    # O(blocks_in_group * group_max_edges) padding cost.
+    @functools.cached_property
+    def hot(self) -> EdgeStorage:
+        return _build_storage(self.graph, self.group_blocks("hot"),
+                              self.block_size)
+
+    @functools.cached_property
+    def cold(self) -> EdgeStorage:
+        return _build_storage(self.graph, self.group_blocks("cold"),
+                              self.block_size)
+
+    def group_blocks(self, key: str) -> np.ndarray:
+        """The global block ids of storage group ``key`` ('hot': born hot,
+        'cold': born cold)."""
+        if key == "hot":
+            return np.arange(0, self.barrier_block, dtype=np.int64)
+        return np.arange(self.barrier_block, self.num_blocks, dtype=np.int64)
+
+    def group_storage(self, key: str, device) -> EdgeStorage:
+        """Storage group ``key`` with its (B, E) arrays as tensors on
+        ``device``: a copy of :attr:`hot`/:attr:`cold` where the host arrays
+        were built or handed over (``repro_torch.interop``), else built on
+        the device itself, so a multi-GB group never passes through host
+        numpy."""
+        host = self.__dict__.get(key)
+        if host is None:
+            return _build_storage(self.graph, self.group_blocks(key),
+                                  self.block_size, device=device)
+        return dataclasses.replace(host, **{
+            f: torch.as_tensor(np.ascontiguousarray(getattr(host, f))).to(
+                device) for f in ("src", "dst_local", "w", "valid")})
+
     @property
     def dead_start(self) -> int:
         return self.n_live
@@ -141,6 +212,44 @@ class PartitionPlan:
         """I/O proxy: bytes loaded when block b is scheduled."""
         return int(block_io_bytes(int(self.unified.edges[b]),
                                   self.block_size))
+
+
+def _build_storage(g: Graph, block_ids: np.ndarray, block_size: int,
+                   device=None) -> EdgeStorage:
+    """Slice contiguous CSC ranges per block and pad to the group max. With
+    ``device`` the (B, E) arrays are torch tensors built there (one row at a
+    time from the CSC slices), else numpy arrays equal to the reference's
+    field for field: capacity rounded up to 128, ``dst_local`` 0 and
+    ``valid`` False in each row's tail."""
+    block_ids = np.asarray(block_ids, dtype=np.int64)
+    lo = block_ids * block_size
+    hi = np.minimum(lo + block_size, g.n)
+    counts = (g.in_indptr[hi] - g.in_indptr[lo]).astype(np.int64)
+    cap = int(max(counts.max() if counts.size else 0, 1))
+    # Round capacity to a lane-friendly multiple (the reference's TPU
+    # tiling: 128).
+    cap = int(-(-cap // 128) * 128)
+
+    dev = torch.device("cpu" if device is None else device)
+    nb = block_ids.size
+    src = torch.zeros((nb, cap), dtype=torch.int32, device=dev)
+    dstl = torch.zeros((nb, cap), dtype=torch.int32, device=dev)
+    w = torch.zeros((nb, cap), dtype=torch.float32, device=dev)
+    valid = torch.zeros((nb, cap), dtype=torch.bool, device=dev)
+    for r in range(nb):
+        e0, e1 = int(g.in_indptr[lo[r]]), int(g.in_indptr[hi[r]])
+        e = e1 - e0
+        src[r, :e] = torch.as_tensor(g.in_src[e0:e1]).to(dev)
+        w[r, :e] = torch.as_tensor(g.in_w[e0:e1]).to(dev)
+        # destination local offset: dst vertex - block start
+        deg = torch.as_tensor(np.diff(g.in_indptr[lo[r]:hi[r] + 1])).to(dev)
+        dstl[r, :e] = torch.repeat_interleave(
+            torch.arange(deg.numel(), dtype=torch.int32, device=dev), deg)
+        valid[r, :e] = True
+    arrays = dict(src=src, dst_local=dstl, w=w, valid=valid)
+    if device is None:
+        arrays = {k: v.numpy() for k, v in arrays.items()}
+    return EdgeStorage(block_ids=block_ids, edges=counts, **arrays)
 
 
 def build_plan(g: Graph, *, block_size: int = 256, alpha: float | None = None,

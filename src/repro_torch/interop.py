@@ -1,7 +1,8 @@
 """State carried across from the reference engine.
 
 :func:`engine_from_arrays` builds the port's :class:`StructureAwareEngine`
-from a reference engine's arrays, handed over as numpy — the vertex
+(or a subclass of it, such as the distributed engine) from a reference
+engine's arrays, handed over as numpy — the vertex
 permutation, the unified tile arrays, the initial values and aux, the
 coupling matrix and the born hot labels — bypassing the port's own
 ``build_plan``. A test can then hold a sweep or a superstep against the
@@ -25,6 +26,12 @@ The arrays (all numpy, reference names):
     is_hot                the born hot labels, a prefix of the blocks (P,)
     cov                   optional: engine EdgeData.cov, (n_tiles, S); the
                           port's own coverage of the tiles must equal it
+    hot_block_ids,        optional, together: plan.hot, the group-padded
+    hot_src,              storage of the born-hot blocks (EdgeStorage
+    hot_dst_local,        fields; (B, E) arrays, (B,) ids and edge counts)
+    hot_w, hot_valid,     that the distributed engine sweeps instead of
+    hot_edges             building its own
+    cold_*                plan.cold, the same six fields
 """
 from __future__ import annotations
 
@@ -34,15 +41,24 @@ import torch
 from repro_torch.core.algorithms import VertexProgram
 from repro_torch.core.engine import EngineConfig, StructureAwareEngine
 from repro_torch.core.graph import from_edges
-from repro_torch.core.partition import PartitionPlan, TiledStorage
+from repro_torch.core.partition import (EdgeStorage, PartitionPlan,
+                                        TiledStorage)
 
 ARRAYS = ("order", "inv", "n_live", "src", "dst_local", "w", "valid",
           "tile_start", "tile_cnt", "edges", "values0", "aux", "coupling",
           "is_hot")
+STORAGE_FIELDS = ("block_ids", "src", "dst_local", "w", "valid", "edges")
+_DTYPES = dict(block_ids=np.int64, src=np.int32, dst_local=np.int32,
+               w=np.float32, valid=bool, edges=np.int64)
 
 
 def engine_from_arrays(program: VertexProgram, config: EngineConfig,
-                       arrays: dict, device="cuda") -> StructureAwareEngine:
+                       arrays: dict, device="cuda",
+                       cls: type = StructureAwareEngine,
+                       **engine_kw) -> StructureAwareEngine:
+    """The engine ``cls`` over the reference's arrays; ``engine_kw`` are
+    its own keyword arguments (the distributed engine's ``group`` and
+    ``blocks_per_device``)."""
     missing = [k for k in ARRAYS if k not in arrays]
     if missing:
         raise KeyError(f"missing arrays: {missing}")
@@ -73,11 +89,16 @@ def engine_from_arrays(program: VertexProgram, config: EngineConfig,
                          n_dead=n - n_live, barrier_block=barrier,
                          unified=store, ad=np.zeros(n), t1=0.0, alpha=0.0,
                          subblocks=config.subblocks)
-    eng = StructureAwareEngine.from_plan(
-        plan, program, config, a["values0"], a["aux"], a["coupling"],
-        barrier, device=device)
-    if "cov" in arrays and not torch.equal(
-            eng.edge_state.cov.cpu(),
+    for key in ("hot", "cold"):  # the cached group storages, handed over
+        if f"{key}_src" in arrays:
+            plan.__dict__[key] = EdgeStorage(**{
+                f: np.ascontiguousarray(arrays[f"{key}_{f}"], _DTYPES[f])
+                for f in STORAGE_FIELDS})
+    eng = cls.from_plan(plan, program, config, a["values0"], a["aux"],
+                        a["coupling"], barrier, device=device, **engine_kw)
+    ed = getattr(eng, "_ed", None)  # an engine that sweeps the tiles
+    if "cov" in arrays and ed is not None and not torch.equal(
+            ed.cov.cpu(),
             torch.as_tensor(np.array(arrays["cov"], dtype=bool))):
         raise ValueError("the tiles' coverage differs from the given cov")
     return eng

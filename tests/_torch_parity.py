@@ -6,23 +6,27 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.interop import engine_from_arrays
+from repro_torch.interop import STORAGE_FIELDS, engine_from_arrays
 
 
 def reference_arrays(eng) -> dict:
     """The reference StructureAwareEngine's state, as the arrays
     ``repro_torch.interop.engine_from_arrays`` takes: its live edge state
-    (the build-time tiles, or the mutated ones after streaming ingests)."""
+    (the build-time tiles, or the mutated ones after streaming ingests),
+    and its plan's group-padded storages (``plan.hot``/``plan.cold``, the
+    distributed engine's layout)."""
     p, u, ed = eng.plan, eng.plan.unified, eng.edge_state
     is_hot = np.zeros(p.num_blocks, dtype=bool)
     is_hot[:p.barrier_block] = True
+    groups = {f"{key}_{f}": np.asarray(getattr(getattr(p, key), f))
+              for key in ("hot", "cold") for f in STORAGE_FIELDS}
     return dict(order=p.order, inv=p.inv, n_live=p.n_live,
                 src=np.asarray(ed.src), dst_local=np.asarray(ed.dstl),
                 w=np.asarray(ed.w), valid=np.asarray(ed.valid),
                 cov=np.asarray(ed.cov), tile_start=u.tile_start,
                 tile_cnt=u.tile_cnt, edges=np.asarray(eng.edge_counts),
                 values0=np.asarray(eng.values0), aux=np.asarray(ed.aux),
-                coupling=np.asarray(eng._coupling), is_hot=is_hot)
+                coupling=np.asarray(eng._coupling), is_hot=is_hot, **groups)
 
 
 def port_engine(eng, program, config):
@@ -176,3 +180,37 @@ def emulate_lane_kernel(program, n_total, ed, values, vconst, rows, ok, psd,
             psd3[r, s] = kb.pairwise_sum(delta[seg]) / torch.tensor(
                 float(cnt))
             dmax3[r, s] = delta[seg].amax(dim=0)
+
+
+def emulate_segment_kernel(msg, dst, layout, row, combine, init):
+    """Kernels 2/3 re-enacted in numpy the way csrc/segment_combine.cu runs
+    them on row ``row`` of ``layout``: launch 1 folds each run from its head
+    (a slot that starts its 512-slot tile or differs in dst from the slot
+    before) and stores the partial at the head's slot; launch 2 folds each
+    destination's partials from ``init`` through the layout's head list.
+    The CUDA kernel cannot run on the CPU, so this holds its order and the
+    head lists against the plain versions."""
+    from repro_torch.kernels import segment as ks
+    merge = {"sum": lambda a, b: np.float32(a + b),
+             "min": lambda a, b: min(a, b),
+             "max": lambda a, b: max(a, b)}[combine]
+    m, d = msg.numpy(), dst.numpy()
+    part = np.zeros(m.size, np.float32)
+    for t0 in range(0, m.size, ks.TILE):  # launch 1: a warp per tile
+        end = min(t0 + ks.TILE, m.size)
+        for i in range(t0, end):
+            if i == t0 or d[i - 1] != d[i]:
+                acc, j = m[i], i + 1
+                while j < end and d[j] == d[i]:
+                    acc, j = merge(acc, m[j]), j + 1
+                part[i] = acc
+    c = layout.block_size
+    hptr = layout.hptr.numpy()[row * c:row * c + c + 1]
+    heads = layout.heads.numpy()
+    out = np.empty(c, np.float32)
+    for v in range(c):  # launch 2: a warp per destination, one chain
+        acc = np.float32(init)
+        for k in range(hptr[v], hptr[v + 1]):
+            acc = merge(acc, part[heads[k]])
+        out[v] = acc
+    return out

@@ -1,4 +1,4 @@
-"""The port on the card: the CUDA sweep kernel against its plain version,
+"""The port on the card: the CUDA kernels against their plain versions,
 and whole runs on the card against the same runs on the CPU. These tests
 need an NVIDIA card and nvcc; elsewhere they skip. On the card:
 
@@ -278,3 +278,70 @@ def test_service_on_card_matches_cpu(card, s):
             else kb.masked_lane_block_sweep.launches) > 0
     for (ea, ia, va), (eb, ib, vb) in zip(*answers):
         assert (ea, ia) == (eb, ib) and np.array_equal(va, vb)
+
+
+@pytest.mark.parametrize("combine", ["sum", "min", "max"])
+def test_segment_kernels_match_plain(card, combine):
+    """Kernels 2 and 3 on the card against their plain version on CPU
+    copies: bitwise, sums included, on group rows with sorted prefixes,
+    unsorted stretches and padded tails of dst 0, through a group layout,
+    a layout of each row's prefix (as the block processor calls them) and
+    a one-row layout; a CUDA call without a layout raises."""
+    from repro_torch.kernels import segment as ks
+    rng = np.random.default_rng(4)
+    c, e = 1024, 70000
+    rows = []
+    for r in range(4):
+        d = rng.integers(0, c, e).astype(np.int32)
+        if r % 2 == 0:
+            d[:e // 2] = np.sort(d[:e // 2])
+            d[e - e // 3:] = 0
+        rows.append(d)
+    dst = torch.from_numpy(np.stack(rows)).cuda()
+    layout = ks.segment_layout(dst, c)
+    ends = [e, e - e // 3, 5000, 511]
+    prefix = ks.segment_layout(dst, c, ends)
+    ident = {"sum": (), "min": (1e18,), "max": (-1e18,)}[combine]
+    kernel = getattr(ks, f"edge_block_{combine}")
+    plain = getattr(ks, f"edge_block_{combine}_ref")
+    n0 = kernel.launches
+    for r in range(4):
+        msg = torch.from_numpy(rng.uniform(0.0, 1.0, e).astype(
+            np.float32)).cuda()
+        got = kernel(msg, dst[r], c, *ident, layout=layout, row=np.int64(r))
+        one = dst[r].clone()
+        alone = kernel(msg, one, c, *ident,
+                       layout=ks.segment_layout(one, c))
+        want = plain(msg.cpu(), dst[r].cpu(), c, *ident)
+        k = ends[r]
+        pre = kernel(msg[:k], dst[r, :k], c, *ident, layout=prefix, row=r)
+        want_pre = plain(msg[:k].cpu(), dst[r, :k].cpu(), c, *ident)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want) and torch.equal(alone.cpu(), want)
+        assert torch.equal(pre.cpu(), want_pre)
+    assert kernel.launches == n0 + 12
+    with pytest.raises(ValueError, match="layout's row"):
+        kernel(msg, dst[1], c, *ident, layout=layout, row=0)
+    with pytest.raises(ValueError, match="segment_layout"):
+        kernel(msg, dst[1], c, *ident)
+
+
+@pytest.mark.parametrize("prog", ["pagerank", "sssp", "bfs", "cc"])
+def test_distributed_on_card_matches_cpu(card, prog):
+    """The distributed engine (a world of one) on the card equals the same
+    run on the CPU bitwise, counters included: the kernels repeat their
+    plain versions' order."""
+    from repro_torch.core.distributed import DistributedEngine
+    from repro_torch.kernels import segment as ks
+    g, program = _graph(prog), A.REGISTRY[prog]()
+    cfg = EngineConfig(block_size=256, width=8, t2=1e-9, hot_inner_iters=4)
+    kernel = {"sum": ks.edge_block_sum, "min": ks.edge_block_min,
+              "max": ks.edge_block_max}[program.combine]
+    n0 = kernel.launches
+    gpu = DistributedEngine(g, program, cfg, blocks_per_device=4).run()
+    assert kernel.launches > n0
+    cpu = DistributedEngine(g, program, cfg, blocks_per_device=4,
+                            device="cpu").run()
+    assert np.array_equal(gpu.values, cpu.values)
+    for f in ("iterations", "updates", "block_loads", "bytes_loaded"):
+        assert getattr(gpu.metrics, f) == getattr(cpu.metrics, f), f
