@@ -6,8 +6,8 @@
 Phases (any failed check exits non-zero; nothing is caught and passed over):
 
 1. Device: the card's name and power limit, torch/CUDA versions, and the
-   build of the kernels from csrc/ (block_sweep.cu, segment_combine.cu, in
-   parallel; seconds, ptxas report).
+   build of the kernels from csrc/ (block_sweep.cu, segment_combine.cu,
+   flash_attention.cu, one nvcc each, in parallel; seconds, ptxas report).
 2. Kernels vs plain version: the kernel on the card and ``block_sweep_ref``
    on CPU copies of the same inputs, for the hub block plus 64 seeded random
    blocks, as one slate at depth 1 and as one-slot chains at depth 8.
@@ -114,6 +114,29 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       rows. Each run prints supersteps, wall seconds, host syncs,
       combine-kernel launches, counters and the padded storage bytes on
       the card; each run's combine kernel must have launched.
+8. LM serving, after phase 6 (whose engines and caches are freed first):
+   a. Kernel 4 (csrc/flash_attention.cu) against its plain version on the
+      card, the plain version's f32 matmuls without TF32: seeded q, k, v
+      at the four dense archs' head shapes (llama3p2_1b, yi_6b, qwen3_14b,
+      mistral_nemo_12b), B = 2, S in (128, 2048), causal and full, f32 at
+      2e-5 and bf16 at 2e-2. Then one call timed at llama3p2_1b's prefill
+      shape (B = 4, Hq = 32, Hkv = 8, S = 2048, D = 64, bf16, causal):
+      the kernel, its plain version, and scaled_dot_product_attention as
+      the library yardstick (timed only, never on the path), beside the
+      bound (the larger of the flops at the bf16 rate and the bytes).
+   b. llama3p2_1b at its published width and depth (16 layers, d = 2048,
+      1.24B parameters) from the port's init_params on the card, every
+      layer's wo redrawn as seeded normals (the reference's init leaves it
+      at zero, and attention would then not reach the logits), served
+      through repro_torch.launch.serve.generate with --use-kernel: batch
+      4, prompts of 2048 tokens, then 16 greedy decode steps. Kernel 4
+      must launch once per layer in the prefill; the prefill's logits
+      must agree with the same prefill on the plain route (chunked
+      attention) and each decode step's with its position in one plain
+      forward over the prompt and the fed tokens, at rtol = atol = 5e-2
+      (the reference's bf16 bar). It prints the prefill and decode times,
+      tokens per second and the peak memory. Phase 8 draws from its own
+      seed, so it shifts no earlier phase's draws.
 7. One JSON line of kernel rows, the card line, and the final ok line.
 
 It needs the repository's src/ beside it, and a CUDA card: without either it
@@ -121,6 +144,7 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -150,13 +174,23 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 LANES = 8  # query lanes per batch (phase 2d and the serving phases)
 SERVE_T2 = 1e-8  # the reference demo's (examples/graph_service.py)
 SERVE_CAP = 20000  # superstep cap of one lane batch
-SOURCES = ("block_sweep", "segment_combine")  # csrc/*.cu
+SOURCES = ("block_sweep", "segment_combine", "flash_attention")  # csrc/*.cu
 DIST_BLOCK = 4096  # the distributed engine's block (launch/dryrun.py)
 DIST_N = 1 << 20  # phase 6b's SSSP graph
 DIST_CC_N = 1 << 18  # phase 6b's CC graph (symmetrized: twice the edges)
 DIST_ROWS = 16  # phase 6a's seeded rows per storage group
 SEED = 0
 DEV = "cuda"
+BF16_FLOPS_PER_S = 989.4e12  # H100 SXM data sheet, dense bf16
+# phase 8a: the dense decoders, whose head shapes kernel 4 is held at
+LM_DENSE = ("llama3p2_1b", "yi_6b", "qwen3_14b", "mistral_nemo_12b")
+LM_ARCH = "llama3p2_1b"  # phase 8b's model, at its published size
+LM_BATCH = 4
+LM_PROMPT = 2048
+LM_GEN = 17  # the prefill's token, then 16 greedy decode steps
+LM_SEED = 8  # phase 8's own seed: its draws shift no earlier phase's
+LM_TOL = 5e-2  # the reference's bf16 logits bar (tests/test_models.py)
+LM_TOL32 = 1e-4  # the f32 bar of the port's model tests
 
 
 def fail(msg: str) -> None:
@@ -1119,6 +1153,281 @@ def distributed_phase(g, pr_base, rng, t_start):
     return launches, errs, hub_t, cold_t
 
 
+def attention_phase():
+    """Phase 8a: kernel 4 against its plain version on the card at the
+    dense archs' head shapes, then one call timed at llama3p2_1b's prefill
+    shape. Returns the largest error per dtype and the times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+
+    def heads(arch):
+        c = configs.get(arch)
+        return c.num_heads, c.num_kv_heads, c.resolved_head_dim
+
+    # the plain version's f32 matmuls in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    gen = torch.Generator(device=DEV).manual_seed(LM_SEED)
+    errs = {}
+    for arch in LM_DENSE:
+        hq, hkv, d = heads(arch)
+        for s in (128, 2048):
+            for causal in (True, False):
+                for dtype, tol in ((torch.float32, 2e-5),
+                                   (torch.bfloat16, 2e-2)):
+                    q, k, v = (torch.randn(2, h, s, d, generator=gen,
+                                           device=DEV).to(dtype)
+                               for h in (hq, hkv, hkv))
+                    got = FA.flash_attention(q, k, v, causal=causal)
+                    want = FA.flash_attention_ref(q, k, v, causal=causal)
+                    torch.cuda.synchronize()
+                    got, want = got.float(), want.float()
+                    if got.shape != q.shape or not bool(
+                            torch.isfinite(got).all()):
+                        fail(f"kernel 4 {arch} S={s}: output not finite "
+                             f"of shape {tuple(q.shape)}")
+                    err = float((got - want).abs().max())
+                    if not torch.allclose(got, want, rtol=tol, atol=tol):
+                        fail(f"kernel 4 {arch} S={s} causal={causal} "
+                             f"{dtype}: off its plain version by {err!r} "
+                             f"(tolerance {tol})")
+                    errs[dtype] = max(errs.get(dtype, 0.0), err)
+    log(f"[kernel] 8a: kernel 4 against its plain version at the heads of "
+        f"{', '.join(LM_DENSE)}, B=2, S in (128, 2048), causal and full: max "
+        f"abs error f32 {errs[torch.float32]!r} (tolerance 2e-5), bf16 "
+        f"{errs[torch.bfloat16]!r} (tolerance 2e-2)")
+    # one call at llama3p2_1b's prefill shape, bf16, causal
+    b, s = LM_BATCH, LM_PROMPT
+    hq, hkv, d = heads(LM_ARCH)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=DEV).to(
+        torch.bfloat16) for h in (hq, hkv, hkv))
+    ms = cuda_ms(lambda: FA.flash_attention(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: FA.flash_attention_ref(q, k, v), 3)
+    # library yardstick (timed here only, never on the path)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    flops = 2 * b * hq * s * s * d
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in, o out
+    bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    bound_by = "operations" if flops / BF16_FLOPS_PER_S \
+        >= nbytes / HBM_BYTES_PER_S else "bytes"
+    log(f"[kernel] 8a: kernel 4 at B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 "
+        f"causal: kernel {ms!r} ms, plain {plain_ms!r} ms, "
+        f"scaled_dot_product_attention {library_ms!r} ms, bound {bound_ms!r} "
+        f"ms ({bound_by}: {flops} flops at {BF16_FLOPS_PER_S:.4g}/s, "
+        f"{nbytes} B at {HBM_BYTES_PER_S:.3g} B/s); kernel at "
+        f"{flops / ms / 1e9:.4g} TFLOP/s")
+    return errs, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=bound_ms, bound_by=bound_by)
+
+
+def lm_close(label, got, want):
+    """f32 logits ``got`` within LM_TOL32 of ``want`` (rtol = atol,
+    elementwise); returns the largest absolute difference."""
+    import torch
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{label}: not finite of shape {tuple(want.shape)}")
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=LM_TOL32, atol=LM_TOL32):
+        fail(f"{label}: off by {err!r} (rtol = atol = {LM_TOL32})")
+    return err
+
+
+def lm_as_accurate(label, got, plain, truth):
+    """bf16 logits ``got`` (a route through kernel 4, or the decode path)
+    no less accurate than ``plain`` (the reference's plain route in bf16),
+    both measured against ``truth`` (the same logits computed in f32): the
+    rms error within 1.25x and the largest within 1.5x of the plain
+    route's. Returns (max, rms) of got - truth, (max, rms) of plain - truth
+    and how many entries of got miss the elementwise 5e-2 bar against
+    plain."""
+    import torch
+    got, plain, truth = got.float(), plain.float(), truth.float()
+    if got.shape != truth.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{label}: not finite of shape {tuple(truth.shape)}")
+    dg, dp = (got - truth).abs(), (plain - truth).abs()
+    e = (float(dg.max()), float(dg.pow(2).mean().sqrt()))
+    ep = (float(dp.max()), float(dp.pow(2).mean().sqrt()))
+    over = int(((got - plain).abs() > LM_TOL + LM_TOL * plain.abs()).sum())
+    if e[1] > 1.25 * ep[1] or e[0] > 1.5 * ep[0]:
+        fail(f"{label}: error against f32 (max, rms) {e!r}, the plain bf16 "
+             f"route's {ep!r}: less accurate than the plain route")
+    return e, ep, over
+
+
+def lm_phase():
+    """Phase 8b: llama3p2_1b at its published width and depth through the
+    serving path with kernel 4 (repro_torch.launch.serve.generate), held
+    against the plain routes on the card. Returns kernel 4's launches on
+    the measured run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = configs.get(LM_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(LM_SEED + 1)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen)
+    # the reference's skip-init leaves every wo at zero, and then no
+    # attention sublayer reaches the logits: the checks below would hold
+    # whatever kernel 4 computed. Redraw wo as seeded normals.
+    scale = (cfg.q_heads_eff * cfg.resolved_head_dim) ** -0.5
+    with torch.no_grad():
+        for layer in params.layers:
+            layer.attn.wo.normal_(0.0, scale, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}"
+        f", vocab {cfg.vocab_padded} (padded), {n_params} parameters "
+        f"(f32 masters, {n_params * 4} B) initialized on the card in "
+        f"{time.perf_counter() - t0:.1f} s; every layer's wo redrawn as "
+        f"seeded normals at scale {scale!r} (the reference's init leaves it "
+        f"at zero, so attention would not reach the logits)")
+    if n_params != cfg.param_count():
+        fail(f"{cfg.name}: {n_params} parameters, the config counts "
+             f"{cfg.param_count()}")
+    rng = np.random.default_rng(LM_SEED)
+    prompt = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32),
+        device=DEV)
+    serve.generate(params, cfg, prompt[:, :128], 2, use_kernel=True)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention.launches = 0
+    r = serve.generate(params, cfg, prompt, LM_GEN, use_kernel=True)
+    launches = FA.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    steps = LM_GEN - 1
+    log(f"[lm] serve --use-kernel: prefill {LM_BATCH}x{LM_PROMPT} in "
+        f"{r.prefill_s * 1e3!r} ms ({LM_BATCH * LM_PROMPT / r.prefill_s!r} "
+        f"tokens/s), {steps} decode steps in {r.decode_s * 1e3!r} ms "
+        f"({r.decode_s * 1e3 / steps!r} ms per step, "
+        f"{steps * LM_BATCH / r.decode_s!r} tokens/s), peak memory {peak} B; "
+        f"kernel 4 launches {launches}; sample tokens "
+        f"{r.tokens[0, :8].tolist()}")
+    if launches != cfg.num_layers:
+        fail(f"kernel 4 launched {launches} times in the prefill, not once "
+             f"per layer ({cfg.num_layers})")
+    if r.tokens.shape != (LM_BATCH, LM_GEN) or not bool(
+            ((r.tokens >= 0) & (r.tokens < cfg.vocab_padded)).all()):
+        fail("generated tokens out of shape or range")
+
+    def prefill(c, use_kernel=False):
+        cache = M.init_cache(c, LM_BATCH, LM_PROMPT, device=DEV)
+        return M.prefill(params, c, {"tokens": prompt}, cache,
+                         use_kernel=use_kernel)[0]
+
+    @torch.no_grad()
+    def forward_tail(c, res):
+        """The logits at the prompt's last position and at each decode
+        step's of one plain forward over the prompt and the tokens the
+        decode steps of ``res`` were fed."""
+        fed = torch.cat([prompt, res.tokens[:, :-1]], dim=1)
+        return M.forward(params, c, {"tokens": fed})[0][:, LM_PROMPT - 1:]
+
+    # The parity checks run at f32 on the same masters: in bf16 the 16
+    # layers amplify the roundoff of a changed sum order past 5e-2 on the
+    # logits (the reference's own full and chunked attention routes differ
+    # by up to 0.07 there), while in f32 the routes differ by ~1e-5.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    r32 = serve.generate(params, cfg32, prompt, LM_GEN, use_kernel=True)
+    plain32 = prefill(cfg32)
+    err_pre = lm_close("f32 prefill logits, kernel 4 against the chunked "
+                       "route", r32.prefill_logits, plain32)
+    tail32 = forward_tail(cfg32, r32)
+    err_fwd = lm_close("f32 prefill logits against the forward",
+                       r32.prefill_logits, tail32[:, 0])
+    err_dec = max(lm_close(f"f32 decode step {t} against the forward", lg,
+                           tail32[:, t + 1])
+                  for t, lg in enumerate(r32.decode_logits))
+    del tail32, r32
+    log(f"[check] 8b f32 (the same masters, activations in f32, kernel 4 "
+        f"in f32): prefill logits within {LM_TOL32} of the chunked route "
+        f"(max abs {err_pre!r}) and of the forward (max abs {err_fwd!r}); "
+        f"all {steps} decode steps within {LM_TOL32} of one forward over "
+        f"the prompt and the fed tokens (max abs {err_dec!r})")
+    # bf16, the served run: its prefill through kernel 4 and its decode
+    # steps no less accurate than the plain bf16 routes, against f32
+    plain16 = prefill(cfg)
+    (e_pre, p_pre, o_pre) = lm_as_accurate(
+        "bf16 prefill logits through kernel 4", r.prefill_logits, plain16,
+        plain32)
+    tail16, tail32 = forward_tail(cfg, r), forward_tail(cfg32, r)
+    dec = [lm_as_accurate(f"bf16 decode step {t}", lg, tail16[:, t + 1],
+                          tail32[:, t + 1])
+           for t, lg in enumerate(r.decode_logits)]
+    # the spread of the reference's own two plain routes in bf16: the
+    # chunked prefill against the forward (full_attention: 2064 keys are
+    # no multiple of 512) at the prompt's last position
+    spread = (plain16.float() - tail16[:, 0].float()).abs()
+    over = int((spread > LM_TOL + LM_TOL * tail16[:, 0].float().abs()).sum())
+    log(f"[lm] 8b bf16: the reference's two plain routes (chunked prefill, "
+        f"full-attention forward) give prefill logits up to "
+        f"{float(spread.max())!r} apart ({over} of {spread.numel()} over "
+        f"the elementwise {LM_TOL} bar); in f32 the kernel route is "
+        f"{err_pre!r} off the chunked route")
+    del tail16, tail32, plain32, plain16, spread
+    log(f"[check] 8b bf16 against f32 (max abs, rms): prefill through "
+        f"kernel 4 {e_pre!r}, the chunked route {p_pre!r} ({o_pre} logits "
+        f"of {r.prefill_logits.numel()} off the chunked route's by more "
+        f"than the elementwise {LM_TOL} bar); decode steps worst "
+        f"{max(d[0][0] for d in dec)!r} max, "
+        f"{max(d[0][1] for d in dec)!r} rms, the forward's "
+        f"{max(d[1][0] for d in dec)!r}, {max(d[1][1] for d in dec)!r} "
+        f"({sum(d[2] for d in dec)} of {steps * r.prefill_logits.numel()} "
+        f"off the bf16 forward's by more than {LM_TOL}); all finite")
+    lm_profile(params, cfg, prompt)
+    return launches
+
+
+def lm_profile(params, cfg, prompt):
+    """Where phase 8b's time goes: one prefill through kernel 4 and then
+    four decode steps under torch.profiler, each printed as the device
+    time by kernel (the largest first), the device's busy share of the
+    host wall clock, and the wall clock itself (profiled: inflated)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    cache = M.init_cache(cfg, LM_BATCH, LM_PROMPT + 4, device=DEV)
+    tok = prompt[:, -1:]
+
+    def run_prefill():
+        M.prefill(params, cfg, {"tokens": prompt}, cache, use_kernel=True)
+
+    def run_decode():
+        for _ in range(4):
+            M.decode_step(params, cfg, tok, cache)
+
+    for label, fn in (("prefill", run_prefill), ("4 decode steps",
+                                                 run_decode)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"
+                   and e.self_device_time_total > 0]
+        kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        busy = sum(e.self_device_time_total for e in kernels)
+        log(f"[lm] profile, {label}: device busy {busy:.1f} us of "
+            f"{wall_us:.1f} us wall ({busy / wall_us!r} busy share), "
+            f"{sum(e.count for e in kernels)} kernel launches")
+        for e in kernels[:10]:
+            log(f"[lm]   {e.self_device_time_total:12.1f} us "
+                f"{e.count:5d}x  {e.key[:100]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1306,6 +1615,7 @@ def main() -> int:
                 fail("a one-lane k_sssp sweep differs from kernel 1's")
             log("[kernel] one-lane k_sssp sweep of every block bitwise equal "
                 "to kernel 1's sssp sweep (values, psd, dmax)")
+            del lv, lp, ld, sv, sp, sd, rows, ok
         del ed8
 
     # -- phase 3: the main path ----------------------------------------------
@@ -1347,7 +1657,8 @@ def main() -> int:
         f"{base_r.metrics.updates / max(sa_r.metrics.updates, 1):.2f}x "
         f"fewer updates, sssp "
         f"{results[('sssp', 'baseline')].metrics.updates / max(results[('sssp', 'structure-aware')].metrics.updates, 1):.2f}x")
-    del engines, results
+    # the loop names still hold the last engines and results: free them
+    del engines, results, sa, base, eng, res, sa_r, base_r
 
     # -- phase 4: streaming with hierarchical partitions ---------------------
     log(f"[time] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
@@ -1442,6 +1753,17 @@ def main() -> int:
     dist_launches, seg_errs, hub_t, cold_t = distributed_phase(
         g, pr_base, rng, t_start)
 
+    # -- phase 8: LM serving, the dense decoder through kernel 4 ------------
+    log(f"[time] phase 8 starts at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm] device memory before phase 8: "
+        f"{torch.cuda.memory_allocated()} B allocated, "
+        f"{torch.cuda.memory_reserved()} B reserved")
+    fa_errs, fa_t = attention_phase()
+    log(f"[time] phase 8b starts at {time.perf_counter() - t_start:.1f} s")
+    fa_launches = lm_phase()
+
     # -- phase 7: the kernels line, the card, and the result -----------------
     t, tm = times["pagerank"], times[("pagerank", 1.0)]
     tl, tlm = times["1l"], times[("1lm", 1.0)]
@@ -1479,7 +1801,14 @@ def main() -> int:
               ms=hub_t[op]["ms"], plain_ms=hub_t[op]["plain_ms"],
               bound_ms=hub_t[op]["bound_ms"], bound_by="bytes",
               library_ms=hub_t[op]["library_ms"])
-         for op in ("sum", "min", "max")]
+         for op in ("sum", "min", "max")] + [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:24",
+             launches=fa_launches, max_abs_err=max(fa_errs.values()),
+             ms=fa_t["ms"], plain_ms=fa_t["plain_ms"],
+             bound_ms=fa_t["bound_ms"], bound_by=fa_t["bound_by"],
+             library_ms=fa_t["library_ms"])]
     log(f"[done] in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

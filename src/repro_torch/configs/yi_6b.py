@@ -1,0 +1,9 @@
+"""yi-6b [dense]: llama-arch GQA, 32L d=4096 32H kv=4 ff=11008.
+[arXiv:2403.04652; hf]."""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="yi-6b", family="dense",
+    num_layers=32, d_model=4096, num_heads=32, num_kv_heads=4,
+    d_ff=11008, vocab_size=64000,
+)

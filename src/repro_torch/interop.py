@@ -32,6 +32,13 @@ The arrays (all numpy, reference names):
     hot_w, hot_valid,     that the distributed engine sweeps instead of
     hot_edges             building its own
     cold_*                plan.cold, the same six fields
+
+:func:`lm_params_from_arrays` does the same for a language model: it takes
+the reference's ``repro.models.model.init_params`` pytree as numpy (the
+per-layer tensors stacked on a leading (L,) axis), unstacks it into the
+port's :class:`repro_torch.models.model.Model`, and gives the module back,
+so both packages run on identical weights (``jax.random`` has no torch
+counterpart).
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from repro_torch.core.engine import EngineConfig, StructureAwareEngine
 from repro_torch.core.graph import from_edges
 from repro_torch.core.partition import (EdgeStorage, PartitionPlan,
                                         TiledStorage)
+from repro_torch.models.config import ArchConfig
 
 ARRAYS = ("order", "inv", "n_live", "src", "dst_local", "w", "valid",
           "tile_start", "tile_cnt", "edges", "values0", "aux", "coupling",
@@ -102,3 +110,36 @@ def engine_from_arrays(program: VertexProgram, config: EngineConfig,
             torch.as_tensor(np.array(arrays["cov"], dtype=bool))):
         raise ValueError("the tiles' coverage differs from the given cov")
     return eng
+
+
+def lm_params_from_arrays(cfg: ArchConfig, tree: dict, device="cuda"):
+    """The port's dense decoder (:class:`repro_torch.models.model.Model`)
+    holding the reference's parameter pytree ``tree`` (numpy leaves, the
+    reference's names: ``embed``, ``ln_f``, ``lm_head`` where untied, and
+    ``layers`` with stacked ``ln1``, ``ln2``, ``attn/*``, ``mlp/*``)."""
+    from repro_torch.models.model import Model
+    model = Model(cfg, device)
+    named = dict(model.named_parameters())
+    want = {"embed": tree["embed"], "ln_f": tree["ln_f"]}
+    if "lm_head" in named:
+        want["lm_head"] = tree["lm_head"]
+    layers = tree["layers"]
+    for i in range(cfg.num_layers):
+        for key in ("ln1", "ln2"):
+            want[f"layers.{i}.{key}"] = layers[key][i]
+        for group in ("attn", "mlp"):
+            for key, a in layers[group].items():
+                want[f"layers.{i}.{group}.{key}"] = a[i]
+    if set(want) != set(named):
+        raise KeyError(f"parameters differ: missing "
+                       f"{sorted(set(named) - set(want))}, unexpected "
+                       f"{sorted(set(want) - set(named))}")
+    with torch.no_grad():
+        for name, a in want.items():
+            p = named[name]
+            a = np.array(a, dtype=np.float32)
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"{name}: shape {a.shape}, the port's is "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(a))
+    return model

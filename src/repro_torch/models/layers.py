@@ -1,0 +1,64 @@
+"""Shared layer math: norms, RoPE, SwiGLU, initializers.
+
+The port of ``repro/models/layers.py``: plain functions on tensors, in the
+reference's precision (norms and RoPE in f32, cast back to the input's
+dtype; the SwiGLU down projection accumulated in f32). The initializers
+draw from an explicit ``torch.Generator`` on the generator's device; they
+do not reproduce ``jax.random``'s numbers (tests hand the reference's
+parameters over instead, ``repro_torch.interop.lm_params_from_arrays``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * weight.float()).to(dt)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    # f32 accumulation on the d_ff contraction, then the cast (the
+    # reference's preferred_element_type=f32): the products of two
+    # x.dtype values are exact in f32
+    return torch.matmul(h.float(), w_down.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device=None) -> torch.Tensor:
+    return 1.0 / theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=device) / head_dim)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: (..., S). The split-half form: the
+    first and second halves of Dh are the pair rotated together."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)  # (Dh/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, Dh/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, Dh/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense_init(gen: torch.Generator, shape, scale: float | None = None,
+               dtype=torch.float32) -> torch.Tensor:
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else fan_in ** -0.5
+    return (torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32) * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape,
+               dtype=torch.float32) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32) * 0.02).to(dtype)

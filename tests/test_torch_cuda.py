@@ -345,3 +345,84 @@ def test_distributed_on_card_matches_cpu(card, prog):
     assert np.array_equal(gpu.values, cpu.values)
     for f in ("iterations", "updates", "block_loads", "bytes_loaded"):
         assert getattr(gpu.metrics, f) == getattr(cpu.metrics, f), f
+
+
+@pytest.mark.parametrize("arch", ["llama3p2_1b", "yi_6b", "qwen3_14b",
+                                  "mistral_nemo_12b"])
+@pytest.mark.parametrize("s", [128, 512])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_plain(card, arch, s, causal, dtype):
+    """Kernel 4 against its plain version on the card, on the same inputs,
+    at the archs' head shapes: f32 at 2e-5 (the plain version's matmuls
+    in full f32, no TF32), bf16 at 2e-2."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = configs.get(arch)
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(s + d)
+    q, k, v = (torch.randn(2, h, s, d, generator=gen, device="cuda").to(
+        getattr(torch, dtype)) for h in (hq, hkv, hkv))
+    n0 = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == n0 + 1
+    assert got.dtype == q.dtype and torch.isfinite(got.float()).all()
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_takes_views_and_refuses_other_head_dims(card):
+    """The wrapper makes its inputs contiguous (the model passes
+    transposed views); a head dim the kernel lacks raises."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(2, 256, h, 64, generator=gen, device="cuda")
+               for h in (8, 2, 2))
+    got = FA.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2))
+    want = FA.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2))
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    q = torch.zeros(1, 2, 128, 32, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        FA.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("arch", ["llama3p2_1b", "qwen3_14b"])
+def test_prefill_with_kernel_matches_plain_route(card, arch):
+    """prefill(use_kernel=True) against prefill(use_kernel=False) on the
+    card, a reduced config at head_dim 64 (the kernel's smallest) with
+    every layer's wo drawn nonzero: kernel 4 launched once per layer, the
+    logits and caches within the bf16 bar of 5e-2."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(configs.reduced(configs.get(arch)),
+                              head_dim=64)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = M.init_params(cfg, gen)
+    with torch.no_grad():
+        for layer in params.layers:
+            layer.attn.wo.normal_(0.0, (cfg.num_heads * 64) ** -0.5,
+                                  generator=gen)
+    tok = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                        device="cuda")
+    out = {}
+    for use_kernel in (True, False):
+        cache = M.init_cache(cfg, 2, 260)
+        n0 = FA.flash_attention.launches
+        out[use_kernel] = M.prefill(params, cfg, {"tokens": tok}, cache,
+                                    use_kernel=use_kernel)
+        assert FA.flash_attention.launches - n0 == (
+            cfg.num_layers if use_kernel else 0)
+    (lk, ck), (lp, cp) = out[True], out[False]
+    torch.testing.assert_close(lk.float(), lp.float(), rtol=5e-2, atol=5e-2)
+    for key in ("k", "v"):
+        torch.testing.assert_close(ck[key].float(), cp[key].float(),
+                                   rtol=5e-2, atol=5e-2)

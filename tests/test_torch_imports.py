@@ -92,6 +92,16 @@ def test_default_device_needs_a_card(monkeypatch):
         streaming_graph.main(["--n", "300"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         graph_service.main(["--n", "300"])
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--prompt-len", "8", "--gen", "2"])
+    cfg = configs.reduced(configs.get("llama3p2_1b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.Model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(cfg, 1, 8)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

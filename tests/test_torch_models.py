@@ -1,0 +1,321 @@
+"""The port's dense decoders against the reference's, on shared weights.
+
+Both packages run the four dense archs at ``configs.reduced`` on the same
+parameters: the reference's ``init_params`` as numpy, handed to the port by
+``repro_torch.interop.lm_params_from_arrays``. The reference initializes
+every ``wo`` to zero (its skip-init), and then the attention sublayer adds
+nothing to the residual stream: logits would agree whatever attention,
+RoPE, the kernel or the KV cache computed. So every layer's ``wo`` is
+redrawn here as seeded normals at scale (Hq * Dh)^-0.5, and one test shows
+that attention then reaches the logits. The bar (ROADMAP fact 4):
+
+* logits at the reduced config's bf16: rtol=atol=5e-2 (the reference's own
+  tolerance, ``tests/test_models.py``); with ``dtype="float32"``: 1e-4;
+* ``forward`` on the plain route, ``forward(use_kernel=True)`` at S = 128
+  against the reference's ``use_pallas=True`` (Pallas in interpret mode),
+  ``prefill`` + ``decode_step`` logits and caches, and, inside the port,
+  prefill + decode against ``forward``;
+* exact head padding (qwen3_14b): padded logits equal unpadded bitwise.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_parity import one_torch_thread  # noqa: F401
+
+from repro import configs as JC
+from repro.models import model as JM
+from repro_torch import configs as TC
+from repro_torch.interop import lm_params_from_arrays
+from repro_torch.launch import serve
+from repro_torch.models import model as TM
+from repro_torch.models.config import ArchConfig
+
+DENSE = ["llama3p2_1b", "yi_6b", "qwen3_14b", "mistral_nemo_12b"]
+OTHERS = ["mamba2_2p7b", "deepseek_moe_16b", "granite_moe_3b_a800m",
+          "phi3_vision_4p2b", "hymba_1p5b", "whisper_base"]
+TOL = {"bfloat16": dict(rtol=5e-2, atol=5e-2),
+       "float32": dict(rtol=1e-4, atol=1e-4)}
+
+
+def _cfg(name, dtype="bfloat16", **kw):
+    cfg = JC.reduced(JC.get(name))
+    return dataclasses.replace(cfg, dtype=dtype, **kw)
+
+
+def _port_cfg(cfg):
+    """The port's copy of the same config."""
+    return ArchConfig(**dataclasses.asdict(cfg))
+
+
+def _tree(cfg, seed=1):
+    """The reference's parameters as numpy, with every layer's wo redrawn
+    as seeded normals at scale (Hq * Dh)^-0.5 (padded rows kept zero)."""
+    tree = jax.tree.map(np.asarray, JM.init_params(cfg,
+                                                   jax.random.PRNGKey(seed)))
+    tree = jax.tree.map(np.array, tree)  # writable copies
+    dh = cfg.resolved_head_dim
+    wo = tree["layers"]["attn"]["wo"]
+    rng = np.random.default_rng(seed + 100)
+    wo[...] = rng.normal(size=wo.shape) * (cfg.q_heads_eff * dh) ** -0.5
+    wo[:, cfg.num_heads * dh:, :] = 0.0
+    return tree
+
+
+def _both(cfg, tree):
+    return (jax.tree.map(jnp.asarray, tree),
+            lm_params_from_arrays(_port_cfg(cfg), tree, device="cpu"))
+
+
+def _tokens(cfg, b=2, s=32, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s),
+                                                dtype=np.int32)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_forward_matches_reference(name, dtype):
+    cfg = _cfg(name, dtype)
+    jp, tp = _both(cfg, _tree(cfg))
+    tok = _tokens(cfg)
+    want, _ = JM.forward(jp, cfg, {"tokens": jnp.asarray(tok)}, remat=False)
+    got, aux = TM.forward(tp, _port_cfg(cfg),
+                          {"tokens": torch.from_numpy(tok)})
+    assert got.shape == (2, 32, cfg.vocab_padded)
+    assert got.dtype == getattr(torch, dtype)
+    assert float(aux["lb_loss"]) == 0.0
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kernel_route_matches_reference(name, dtype):
+    """``use_kernel=True`` (kernel 4's plain version on the CPU) against the
+    reference's ``use_pallas=True`` (its Pallas kernel, interpreted), at
+    S = 128."""
+    cfg = _cfg(name, dtype)
+    jp, tp = _both(cfg, _tree(cfg))
+    tok = _tokens(cfg, s=128)
+    want, _ = JM.forward(jp, cfg, {"tokens": jnp.asarray(tok)},
+                         use_pallas=True, remat=False)
+    got, _ = TM.forward(tp, _port_cfg(cfg), {"tokens": torch.from_numpy(tok)},
+                        use_kernel=True)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_serving_matches_reference(name, dtype):
+    """prefill of 16 tokens, then decode steps fed the true next tokens:
+    every step's logits and the final caches against the reference's."""
+    cfg = _cfg(name, dtype)
+    pcfg = _port_cfg(cfg)
+    jp, tp = _both(cfg, _tree(cfg))
+    tok = _tokens(cfg)
+    half, s = 16, 32
+    jc = JM.init_cache(cfg, 2, s)
+    tc = TM.init_cache(pcfg, 2, s, device="cpu")
+    jl, jc = JM.prefill(jp, cfg, {"tokens": jnp.asarray(tok[:, :half])}, jc)
+    tl, tc = TM.prefill(tp, pcfg, {"tokens": torch.from_numpy(tok[:, :half])},
+                        tc)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL[dtype])
+    decode = jax.jit(lambda p, x, c: JM.decode_step(p, cfg, x, c))
+    for t in range(half, s):
+        jl, jc = decode(jp, jnp.asarray(tok[:, t:t + 1]), jc)
+        tl, tc = TM.decode_step(tp, pcfg, torch.from_numpy(tok[:, t:t + 1]),
+                                tc)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL[dtype])
+    assert tc["pos"] == int(jc["pos"]) == s
+    for key in ("k", "v"):
+        assert tc[key].dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(_np(tc[key]), _np(jc[key]), **TOL[dtype])
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_decode_matches_forward(name):
+    """Inside the port: prefill + decode token by token equals the
+    full-sequence forward (the reference's test_decode_matches_forward,
+    with attention live)."""
+    cfg = _port_cfg(_cfg(name))
+    tp = lm_params_from_arrays(cfg, _tree(_cfg(name)), device="cpu")
+    tok = torch.from_numpy(_tokens(cfg))
+    full, _ = TM.forward(tp, cfg, {"tokens": tok})
+    half, s = 16, 32
+    cache = TM.init_cache(cfg, 2, s, device="cpu")
+    lg, cache = TM.prefill(tp, cfg, {"tokens": tok[:, :half]}, cache)
+    np.testing.assert_allclose(_np(lg), _np(full[:, half - 1]), **TOL[
+        "bfloat16"])
+    for t in range(half, s - 1):
+        lg, cache = TM.decode_step(tp, cfg, tok[:, t:t + 1], cache)
+        np.testing.assert_allclose(_np(lg), _np(full[:, t]),
+                                   **TOL["bfloat16"])
+
+
+def test_attention_reaches_the_logits():
+    """With the redrawn wo, scaling and shifting wq moves the port's logits
+    by more than the parity tolerance, so the parity tests above hold
+    attention to the reference; with the reference's zero wo it moves
+    nothing."""
+    cfg = _cfg("llama3p2_1b")
+    pcfg = _port_cfg(cfg)
+    tok = {"tokens": torch.from_numpy(_tokens(cfg))}
+    for redraw in (True, False):
+        tree = _tree(cfg) if redraw else jax.tree.map(
+            np.asarray, JM.init_params(cfg, jax.random.PRNGKey(1)))
+        base, _ = TM.forward(lm_params_from_arrays(pcfg, tree, device="cpu"),
+                             pcfg, tok)
+        tree = jax.tree.map(np.array, tree)
+        tree["layers"]["attn"]["wq"] = tree["layers"]["attn"]["wq"] * 1.5 \
+            + 0.05
+        moved, _ = TM.forward(lm_params_from_arrays(pcfg, tree,
+                                                    device="cpu"), pcfg, tok)
+        diff = float(np.abs(_np(moved) - _np(base)).max())
+        if redraw:
+            assert diff > 10 * TOL["bfloat16"]["atol"], diff
+        else:
+            assert diff == 0.0, diff
+
+
+def test_structural_padding_is_exact():
+    """Zero-padded q and kv heads change nothing (the reference's
+    test_structural_padding_is_exact for qwen3_14b)."""
+    cfg = _cfg("qwen3_14b")
+    cfgp = dataclasses.replace(cfg, pad_q_heads_to=8, pad_kv_heads_to=4)
+    a = _tree(cfg)
+    b = jax.tree.map(np.array, jax.tree.map(
+        np.asarray, JM.init_params(cfgp, jax.random.PRNGKey(0))))
+    dh = cfg.resolved_head_dim
+    rq, rkv = cfg.num_heads * dh, cfg.num_kv_heads * dh
+    aa, ba = a["layers"]["attn"], b["layers"]["attn"]
+    ba["wq"][:, :, :rq] = aa["wq"]
+    ba["wk"][:, :, :rkv] = aa["wk"]
+    ba["wv"][:, :, :rkv] = aa["wv"]
+    ba["wo"][:, :rq, :] = aa["wo"]
+    for key in ("q_norm", "k_norm"):
+        ba[key] = aa[key]
+    for key in ("embed", "ln_f", "lm_head"):
+        b[key] = a[key]
+    for key in ("ln1", "ln2", "mlp"):
+        b["layers"][key] = a["layers"][key]
+    tok = {"tokens": torch.from_numpy(_tokens(cfg))}
+    l0, _ = TM.forward(lm_params_from_arrays(_port_cfg(cfg), a,
+                                             device="cpu"),
+                       _port_cfg(cfg), tok)
+    l1, _ = TM.forward(lm_params_from_arrays(_port_cfg(cfgp), b,
+                                             device="cpu"),
+                       _port_cfg(cfgp), tok)
+    assert torch.equal(l0, l1)
+
+
+def test_init_params_matches_the_reference_layout():
+    """The port's own init_params: the reference's names, shapes and
+    scales, wo at zero, padded slices zero; not the reference's values
+    (jax.random has no torch counterpart)."""
+    cfg = _cfg("qwen3_14b", pad_q_heads_to=8, pad_kv_heads_to=4)
+    pcfg = _port_cfg(cfg)
+    model = TM.init_params(pcfg, torch.Generator().manual_seed(0))
+    again = TM.init_params(pcfg, torch.Generator().manual_seed(0))
+    ref = JM.init_params(cfg, jax.random.PRNGKey(0))
+    named = dict(model.named_parameters())
+    want = {k: ref[k] for k in ("embed", "ln_f", "lm_head")}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(
+            ref["layers"])[0]:
+        keys = ".".join(p.key for p in path)
+        for i in range(cfg.num_layers):
+            want[f"layers.{i}.{keys}"] = leaf[i]
+    assert set(named) == set(want)
+    for n, p in named.items():
+        assert tuple(p.shape) == want[n].shape, n
+        assert torch.equal(p, dict(again.named_parameters())[n]), n
+    dh = cfg.resolved_head_dim
+    for layer in model.layers:
+        assert not layer.attn.wo.any()
+        assert not layer.attn.wq[:, cfg.num_heads * dh:].any()
+        assert not layer.attn.wk[:, cfg.num_kv_heads * dh:].any()
+        assert torch.all(layer.ln1 == 1)
+    assert abs(float(model.embed.detach().std()) - 0.02) < 0.002
+
+
+@pytest.mark.parametrize("name", OTHERS)
+def test_other_families_raise(name):
+    cfg = TC.reduced(TC.get(name))
+    tok = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
+    calls = [lambda: TM.init_params(cfg, torch.Generator()),
+             lambda: TM.init_cache(cfg, 1, 8, device="cpu"),
+             lambda: TM.forward(None, cfg, tok),
+             lambda: TM.prefill(None, cfg, tok, {}),
+             lambda: TM.decode_step(None, cfg, tok["tokens"], {})]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            call()
+
+
+def test_configs_are_the_reference_configs():
+    assert TC.ARCH_NAMES == JC.ARCH_NAMES
+    for name in JC.ARCH_NAMES:
+        for fn in (lambda c: c, JC.reduced):
+            want = fn(JC.get(name))
+            got = TC.get(name) if fn is not JC.reduced else TC.reduced(
+                TC.get(name))
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            assert got.param_count() == want.param_count()
+            assert got.vocab_padded == want.vocab_padded
+    assert TC.get("llama3.2-1b") == TC.get("llama3p2_1b")
+    assert {k: dataclasses.asdict(v) for k, v in TC.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in JC.SHAPES.items()}
+
+
+@pytest.mark.parametrize("name", ["llama3p2_1b", "phi3_vision_4p2b",
+                                  "whisper_base"])
+def test_input_specs_match_reference(name):
+    shape = JC.SHAPES["train_4k"]
+    want = JC.input_specs(JC.reduced(JC.get(name)), shape, concrete=True,
+                          batch_override=2, seq_override=64)
+    got = TC.input_specs(TC.reduced(TC.get(name)), TC.SHAPES["train_4k"],
+                         concrete=True, batch_override=2, seq_override=64,
+                         device="cpu")
+    assert set(got) == set(want)
+    for key in want:
+        assert np.array_equal(_np(got[key]), _np(want[key])), key
+    cache = TC.cache_specs(TC.reduced(TC.get("yi_6b")),
+                           TC.SHAPES["decode_32k"], concrete=True,
+                           batch_override=2, seq_override=16, device="cpu")
+    ref = JC.cache_specs(JC.reduced(JC.get("yi_6b")), JC.SHAPES["decode_32k"],
+                         concrete=True, batch_override=2, seq_override=16)
+    assert cache["k"].shape == ref["k"].shape and cache["pos"] == 0
+
+
+def test_serve_generates_as_the_reference_flow():
+    """``serve.generate`` (prefill, pos = prompt length, greedy decode) on
+    shared f32 weights picks the tokens the reference's prefill/decode_step
+    pick in the same flow."""
+    cfg = _cfg("llama3p2_1b", "float32")
+    jp, tp = _both(cfg, _tree(cfg))
+    prompt = _tokens(cfg, s=128)
+    r = serve.generate(tp, _port_cfg(cfg), torch.from_numpy(prompt), 6,
+                       use_kernel=True)
+    assert r.tokens.shape == (2, 6) and len(r.decode_logits) == 5
+    cache = JM.init_cache(cfg, 2, 128 + 6)
+    lg, cache = JM.prefill(jp, cfg, {"tokens": jnp.asarray(prompt)}, cache,
+                           use_pallas=True)
+    want = [jnp.argmax(lg, -1)]
+    decode = jax.jit(lambda p, x, c: JM.decode_step(p, cfg, x, c))
+    for _ in range(5):
+        lg, cache = decode(jp, want[-1][:, None].astype(jnp.int32), cache)
+        want.append(jnp.argmax(lg, -1))
+    assert np.array_equal(r.tokens.numpy(), np.stack(want, 1))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        serve.generate(tp, _port_cfg(cfg), torch.from_numpy(prompt[:, :100]),
+                       2, use_kernel=True)
+    out = serve.main(["--reduced", "--device", "cpu", "--prompt-len", "128",
+                      "--gen", "3", "--use-kernel"])
+    assert out.shape == (4, 3)
