@@ -7,7 +7,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
 
 1. Device: the card's name and power limit, torch/CUDA versions, and the
    build of the kernels from csrc/ (block_sweep.cu, segment_combine.cu,
-   flash_attention.cu, one nvcc each, in parallel; seconds, ptxas report).
+   flash_attention.cu, ssd_scan.cu, one nvcc each, in parallel; seconds,
+   ptxas report).
 2. Kernels vs plain version: the kernel on the card and ``block_sweep_ref``
    on CPU copies of the same inputs, for the hub block plus 64 seeded random
    blocks, as one slate at depth 1 and as one-slot chains at depth 8.
@@ -50,10 +51,12 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    SSSP fixpoints must be bitwise equal, PageRank must agree at rtol=1e-4,
    atol=2e-3/n, and the sweep kernel must have launched on the main path.
 4. Streaming with hierarchical partitions: a StreamingEngine (S = 8,
-   StreamConfig() defaults) over PageRank on the phase-3 PageRank graph,
-   bootstrapped by a cold run, then two synthetic_stream batches (10
-   edits, 200 edits with deletes; a third, of 200 edits without deletes,
-   went for the time limit). After each batch the warm
+   StreamConfig() defaults) over PageRank on core_periphery_graph(seed=1,
+   chords=1) at n = 2^20 (PR_STREAM_N, cut from phase 3's 2^21 for the
+   time limit; t2 scaled to its 1/n), bootstrapped by a cold run, then two
+   synthetic_stream batches (10 edits, 200 edits with deletes; a third, of
+   200 edits without deletes, went for the time limit). After each batch
+   the warm
    values must agree with BaselineEngine on the mutated graph (rtol=1e-4,
    atol=2e-3/n). Then SSSP with deletes (three batches of 200 edits) on a
    weighted powerlaw_graph, bitwise equal to the baseline after each
@@ -69,7 +72,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    every lane must converge.
    a. Kernel 1l: the reference demo's configuration (a PageRank
       StreamingEngine, S = 1, block 512, t2 = 1e-8) at the smoke's width
-      128 on phase 3's weighted powerlaw_graph(2^21), served by
+      128 on a weighted powerlaw_graph(seed=2) at n = 2^20 (SERVE_N, cut
+      from phase 3's 2^21 for the time limit), served by
       QueryService(max_lanes=8): 8 PPR queries (seeded 2-vertex reset
       sets), held within rtol=1e-3, atol=1e-6 of a power iteration on the
       card over the unmutated graph. The demo's SSSP queries run in 5b:
@@ -114,7 +118,9 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       rows. Each run prints supersteps, wall seconds, host syncs,
       combine-kernel launches, counters and the padded storage bytes on
       the card; each run's combine kernel must have launched.
-8. LM serving, after phase 6 (whose engines and caches are freed first):
+8. LM serving, after phase 6 (whose engines and caches are freed first).
+   Each model phase draws from its own seed, so it shifts no earlier
+   phase's draws.
    a. Kernel 4 (csrc/flash_attention.cu) against its plain version on the
       card, the plain version's f32 matmuls without TF32: seeded q, k, v
       at the four dense archs' head shapes (llama3p2_1b, yi_6b, qwen3_14b,
@@ -123,20 +129,50 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       shape (B = 4, Hq = 32, Hkv = 8, S = 2048, D = 64, bf16, causal):
       the kernel, its plain version, and scaled_dot_product_attention as
       the library yardstick (timed only, never on the path), beside the
-      bound (the larger of the flops at the bf16 rate and the bytes).
+      bound (the larger of the flops at the bf16 rate and the bytes). Then
+      hymba_1p5b's heads (Hq = 25, Hkv = 5, D = 64: an odd GQA group) at
+      the same S, masks and tolerances, from a generator of their own.
    b. llama3p2_1b at its published width and depth (16 layers, d = 2048,
       1.24B parameters) from the port's init_params on the card, every
       layer's wo redrawn as seeded normals (the reference's init leaves it
       at zero, and attention would then not reach the logits), served
       through repro_torch.launch.serve.generate with --use-kernel: batch
-      4, prompts of 2048 tokens, then 16 greedy decode steps. Kernel 4
-      must launch once per layer in the prefill; the prefill's logits
-      must agree with the same prefill on the plain route (chunked
-      attention) and each decode step's with its position in one plain
-      forward over the prompt and the fed tokens, at rtol = atol = 5e-2
-      (the reference's bf16 bar). It prints the prefill and decode times,
-      tokens per second and the peak memory. Phase 8 draws from its own
-      seed, so it shifts no earlier phase's draws.
+      4, prompts of 2048 tokens, then 16 greedy decode steps. Its
+      parameter count must equal the reference tree's (counted from the
+      config: ArchConfig.param_count() is analytic and misses the SSM's
+      vectors). Kernel 4 must launch once per layer in the prefill. The
+      same masters with f32 activations: the prefill's logits within 1e-4
+      of the plain route's (chunked attention) and each decode step's of
+      its position in one plain forward over the prompt and the fed
+      tokens; the bf16 run no less accurate against f32 than the plain
+      bf16 routes (at 16 layers two bf16 sum orders already differ by more
+      than 5e-2). It prints the prefill and decode times, tokens per
+      second, the peak memory, and a torch.profiler breakdown of one
+      prefill and four decode steps.
+   c. Kernel 5 (csrc/ssd_scan.cu) against its plain version on the card,
+      TF32 off: the heads form at mamba2_2p7b's and hymba_1p5b's prefill
+      shapes ((cells, Q, N, H, P) = (32, 256, 128, 80, 64) and (32, 256,
+      16, 25, 64)), with ld drawn as the model draws it (dt = softplus of
+      a normal plus the dt bias, A in [1, 16]) so that exp(l_q - l_s)
+      overflows above the diagonal (checked), f32 at rtol=1e-5,
+      atol=1e-4 * max|y| and bf16 at 2e-2; then the reference test's three
+      shapes in f32. Then one call timed at mamba2's shape in f32: the
+      kernel, its plain version and the bound (the larger of the bytes
+      and the causal flops at the TF32 rate, the Gram c.b counted once per
+      cell since the heads share c and b; the f32 CUDA-core floor is
+      printed beside it, and the flops the kernel executes). No single
+      PyTorch call computes the function, so there is no library time.
+   d. mamba2_2p7b at its published width and depth (64 layers, d = 2560,
+      80 SSM heads of 64, N = 128, 2,704,590,336 parameters), served and
+      checked as 8b, after 8b's model is freed: kernel 5 must launch once
+      per layer in the prefill, kernel 4 never. The forward that the
+      decode steps are held against takes the largest SSD chunk that
+      divides its 2064 tokens (the chunked algorithm is the same function
+      at any chunk). The profile prints kernel 5's share of the prefill.
+   e. hymba_1p5b at its published width and depth (32 layers, d = 1600,
+      25/5 attention heads and 25 SSM heads of 64, N = 16, 1,395,924,896
+      parameters; wo redrawn): kernels 4 and 5 in every layer, each
+      launched once per layer in the prefill; checked and profiled as 8d.
 7. One JSON line of kernel rows, the card line, and the final ok line.
 
 It needs the repository's src/ beside it, and a CUDA card: without either it
@@ -167,14 +203,17 @@ BASE_CAP = 2000  # baseline iteration cap
 SUB = 8  # sub-blocks per block on the masked paths
 MUTATE_N = 1 << 18  # the mutated-layout check's graph (phase 2c)
 MUTATE_EDITS = 10000
+PR_STREAM_N = 1 << 20  # phase 4's PageRank stream
 SSSP_STREAM_N = 1 << 19  # phase 4's SSSP stream
+SERVE_N = 1 << 20  # phase 5a's PPR stream
 BFS_STREAM_N = 1 << 17  # phase 5c's stream
 STREAM_CAP = 8000  # superstep cap of one streaming run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 LANES = 8  # query lanes per batch (phase 2d and the serving phases)
 SERVE_T2 = 1e-8  # the reference demo's (examples/graph_service.py)
 SERVE_CAP = 20000  # superstep cap of one lane batch
-SOURCES = ("block_sweep", "segment_combine", "flash_attention")  # csrc/*.cu
+SOURCES = ("block_sweep", "segment_combine", "flash_attention",
+           "ssd_scan")  # csrc/*.cu
 DIST_BLOCK = 4096  # the distributed engine's block (launch/dryrun.py)
 DIST_N = 1 << 20  # phase 6b's SSSP graph
 DIST_CC_N = 1 << 18  # phase 6b's CC graph (symmetrized: twice the edges)
@@ -182,6 +221,8 @@ DIST_ROWS = 16  # phase 6a's seeded rows per storage group
 SEED = 0
 DEV = "cuda"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM data sheet, dense bf16
+TF32_FLOPS_PER_S = 495e12  # the same, dense TF32
+F32_FLOPS_PER_S = 67e12  # the same, f32 outside the tensor cores
 # phase 8a: the dense decoders, whose head shapes kernel 4 is held at
 LM_DENSE = ("llama3p2_1b", "yi_6b", "qwen3_14b", "mistral_nemo_12b")
 LM_ARCH = "llama3p2_1b"  # phase 8b's model, at its published size
@@ -191,6 +232,11 @@ LM_GEN = 17  # the prefill's token, then 16 greedy decode steps
 LM_SEED = 8  # phase 8's own seed: its draws shift no earlier phase's
 LM_TOL = 5e-2  # the reference's bf16 logits bar (tests/test_models.py)
 LM_TOL32 = 1e-4  # the f32 bar of the port's model tests
+SSM_ARCH = "mamba2_2p7b"  # phase 8d's model, at its published size
+HYBRID_ARCH = "hymba_1p5b"  # phase 8e's model, at its published width
+SSD_SEED = 30  # phase 8c's own seed
+SSM_SEED = 40  # phase 8d's (and + 1)
+HYBRID_SEED = 50  # phase 8e's (and + 1)
 
 
 def fail(msg: str) -> None:
@@ -1219,6 +1265,33 @@ def attention_phase():
         f"ms ({bound_by}: {flops} flops at {BF16_FLOPS_PER_S:.4g}/s, "
         f"{nbytes} B at {HBM_BYTES_PER_S:.3g} B/s); kernel at "
         f"{flops / ms / 1e9:.4g} TFLOP/s")
+    # hymba_1p5b's heads (25 q heads over 5 kv heads: an odd GQA group),
+    # from a generator of their own so that the draws above stay as they
+    # were
+    gen = torch.Generator(device=DEV).manual_seed(LM_SEED + 20)
+    hq, hkv, d = heads(HYBRID_ARCH)
+    hy = {}
+    for s in (128, 2048):
+        for causal in (True, False):
+            for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+                q, k, v = (torch.randn(2, h, s, d, generator=gen,
+                                       device=DEV).to(dtype)
+                           for h in (hq, hkv, hkv))
+                got = FA.flash_attention(q, k, v, causal=causal).float()
+                want = FA.flash_attention_ref(q, k, v, causal=causal).float()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not bool(torch.isfinite(got).all()) or not torch.allclose(
+                        got, want, rtol=tol, atol=tol):
+                    fail(f"kernel 4 {HYBRID_ARCH} S={s} causal={causal} "
+                         f"{dtype}: off its plain version by {err!r} "
+                         f"(tolerance {tol})")
+                hy[dtype] = max(hy.get(dtype, 0.0), err)
+                errs[dtype] = max(errs[dtype], err)
+    log(f"[kernel] 8a: kernel 4 against its plain version at "
+        f"{HYBRID_ARCH}'s heads (Hq={hq}, Hkv={hkv}, D={d}), B=2, S in (128, "
+        f"2048), causal and full: max abs error f32 {hy[torch.float32]!r}, "
+        f"bf16 {hy[torch.bfloat16]!r}")
     return errs, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                       bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1258,43 +1331,170 @@ def lm_as_accurate(label, got, plain, truth):
     return e, ep, over
 
 
-def lm_phase():
-    """Phase 8b: llama3p2_1b at its published width and depth through the
-    serving path with kernel 4 (repro_torch.launch.serve.generate), held
-    against the plain routes on the card. Returns kernel 4's launches on
-    the measured run."""
+def ssd_inputs(gen, cells, q, n, h, p, dtype):
+    """Kernel 5's heads-form inputs drawn as the model draws them: c, b, x
+    normal; dt = softplus(normal + dt_bias) with the bias the inverse
+    softplus of a log-uniform dt in [1e-3, 1e-1] per head, A = exp(a_log)
+    uniform in [1, 16]; u = x dt and ld the within-chunk cumsum of dt * -A
+    (f32). Over a 256-step chunk l_q - l_s then overflows exp above the
+    diagonal for the fast heads."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt0 = torch.exp(lo + (hi - lo) * torch.rand(h, generator=gen, device=DEV))
+    a = 1.0 + 15.0 * torch.rand(h, generator=gen, device=DEV)
+    dt = F.softplus(torch.randn(cells, q, h, generator=gen, device=DEV)
+                    + torch.log(torch.expm1(dt0)))
+    ld = torch.cumsum(dt * -a, dim=1)
+    u = torch.randn(cells, q, h, p, generator=gen, device=DEV) * dt[..., None]
+    c, b = (torch.randn(cells, q, n, generator=gen, device=DEV)
+            for _ in range(2))
+    return c.to(dtype), b.to(dtype), u.to(dtype), ld
+
+
+def ssd_phase():
+    """Phase 8c: kernel 5 against its plain version on the card, then one
+    call timed at mamba2_2p7b's prefill shape. Returns the largest error
+    and the times."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ssd_scan as SSD
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    gen = torch.Generator(device=DEV).manual_seed(SSD_SEED)
+
+    def check(what, c, b, u, ld, rtol, afac):
+        got = SSD.ssd_intra_chunk(c, b, u, ld)
+        want = SSD.ssd_intra_chunk_ref(c, b, u, ld)
+        torch.cuda.synchronize()
+        if got.shape != u.shape or got.dtype != u.dtype or not bool(
+                torch.isfinite(got.float()).all()):
+            fail(f"kernel 5 {what}: output not finite of shape "
+                 f"{tuple(u.shape)} {u.dtype}")
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not torch.allclose(got, want, rtol=rtol, atol=afac * scale):
+            fail(f"kernel 5 {what}: off its plain version by {err!r} "
+                 f"(max |want| {scale!r})")
+        return err, scale
+
+    errs, lines = {}, []
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        cfg = configs.get(arch)
+        shape = (LM_BATCH * LM_PROMPT // cfg.ssm_chunk, cfg.ssm_chunk,
+                 cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim)
+        for dtype, tol in ((torch.float32, (1e-5, 1e-4)),
+                           (torch.bfloat16, (2e-2, 2e-2))):
+            c, b, u, ld = ssd_inputs(gen, *shape, dtype)
+            over = int((-ld[:, -1]).gt(88.7).sum())
+            if over == 0:
+                fail(f"kernel 5 {arch}: no head's decay overflows exp "
+                     f"above the diagonal; the inputs miss the case")
+            err, scale = check(f"{arch} {dtype}", c, b, u, ld, *tol)
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+            lines.append(f"{arch} (cells, Q, N, H, P) = {shape} {dtype}: "
+                         f"{err!r} (max |y| {scale!r}; {over} (cell, head) "
+                         f"pairs overflow exp above the diagonal)")
+    # the reference test's shapes (tests/test_kernels.py:128-129), one head
+    for g, q, n, p in ((4, 64, 32, 16), (2, 128, 128, 64), (6, 128, 64, 128)):
+        c, b, u = (torch.randn(g, q, k, generator=gen, device=DEV)
+                   for k in (n, n, p))
+        ld = torch.cumsum(-0.1 * torch.rand(g, q, generator=gen, device=DEV),
+                          dim=1)
+        err, scale = check(f"(G, Q, N, P) = {(g, q, n, p)}", c, b, u, ld,
+                           1e-5, 1e-4)
+        errs[torch.float32] = max(errs[torch.float32], err)
+        lines.append(f"(G, Q, N, P) = {(g, q, n, p)} f32: {err!r}")
+    log("[kernel] 8c: kernel 5 against its plain version (f32 at rtol=1e-5, "
+        "atol=1e-4 * max|y|; bf16 at 2e-2 * max|y|): " + "; ".join(lines))
+    # one call at mamba2_2p7b's prefill shape, f32 (the model's route)
+    cfg = configs.get(SSM_ARCH)
+    cells, q = LM_BATCH * LM_PROMPT // cfg.ssm_chunk, cfg.ssm_chunk
+    n, h, p = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    c, b, u, ld = ssd_inputs(gen, cells, q, n, h, p, torch.float32)
+    ms = cuda_ms(lambda: SSD.ssd_intra_chunk(c, b, u, ld), 20)
+    plain_ms = cuda_ms(lambda: SSD.ssd_intra_chunk_ref(c, b, u, ld), 3)
+    # the causal term: the Gram c.b once per cell (the heads share c and
+    # b), its decayed tile times u once per (cell, head)
+    flops = cells * q * (q + 1) * (n + h * p)
+    # what the kernel executes: the Gram once per (cell, head), and whole
+    # 64 x 64 tiles on the diagonal
+    tiles = -(-q // 64)
+    run_flops = cells * h * tiles * (tiles + 1) * 64 * 64 * (n + p)
+    nbytes = 4 * (c.numel() + b.numel() + 2 * u.numel() + ld.numel())
+    t_ops, t_bytes = flops / TF32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"[kernel] 8c: kernel 5 at (cells, Q, N, H, P) = {(cells, q, n, h, p)}"
+        f" f32: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} "
+        f"ms ({bound_by}: {nbytes} B at {HBM_BYTES_PER_S:.3g} B/s, "
+        f"{flops} causal flops at the TF32 rate {TF32_FLOPS_PER_S:.4g}/s = "
+        f"{t_ops * 1e3!r} ms); the f32 CUDA-core floor of the same flops at "
+        f"{F32_FLOPS_PER_S:.3g}/s is {flops / F32_FLOPS_PER_S * 1e3!r} ms; "
+        f"kernel at {flops / ms / 1e9:.4g} TFLOP/s of the function's flops; "
+        f"it executes {run_flops} flops (the Gram per head, whole diagonal "
+        f"tiles), {run_flops / ms / 1e9:.4g} TFLOP/s; no single PyTorch call "
+        f"computes this function, so there is no library time")
+    return errs, dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                      bound_ms=bound_ms, bound_by=bound_by)
+
+
+def largest_chunk(cfg, s: int) -> int:
+    """The largest SSD chunk up to ``cfg.ssm_chunk`` that divides ``s``:
+    a forward over the prompt and the fed decode tokens (2048 + 16) is no
+    multiple of the model's chunk (256), and the chunked algorithm is the
+    same function at any chunk."""
+    return max(q for q in range(1, min(cfg.ssm_chunk, s) + 1) if s % q == 0)
+
+
+def lm_phase(label, arch, seed):
+    """Phases 8b, 8d and 8e: ``arch`` at its published width and depth
+    through the serving path with ``--use-kernel``
+    (repro_torch.launch.serve.generate), held against the plain routes on
+    the card. Returns the launches of kernels 4 and 5 in the served run."""
     import dataclasses
 
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.launch import serve
     from repro_torch.models import model as M
-    cfg = configs.get(LM_ARCH)
-    gen = torch.Generator(device=DEV).manual_seed(LM_SEED + 1)
+    cfg = configs.get(arch)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
     t0 = time.perf_counter()
     params = M.init_params(cfg, gen)
-    # the reference's skip-init leaves every wo at zero, and then no
-    # attention sublayer reaches the logits: the checks below would hold
-    # whatever kernel 4 computed. Redraw wo as seeded normals.
-    scale = (cfg.q_heads_eff * cfg.resolved_head_dim) ** -0.5
-    with torch.no_grad():
-        for layer in params.layers:
-            layer.attn.wo.normal_(0.0, scale, generator=gen)
-    torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}"
-        f", vocab {cfg.vocab_padded} (padded), {n_params} parameters "
-        f"(f32 masters, {n_params * 4} B) initialized on the card in "
-        f"{time.perf_counter() - t0:.1f} s; every layer's wo redrawn as "
-        f"seeded normals at scale {scale!r} (the reference's init leaves it "
-        f"at zero, so attention would not reach the logits)")
-    if n_params != cfg.param_count():
-        fail(f"{cfg.name}: {n_params} parameters, the config counts "
-             f"{cfg.param_count()}")
-    rng = np.random.default_rng(LM_SEED)
+    what = [f"{cfg.num_layers} layers, d={cfg.d_model}"]
+    if cfg.has_attention:
+        # the reference's skip-init leaves every wo at zero, and then no
+        # attention sublayer reaches the logits: the checks below would
+        # hold whatever kernel 4 computed. Redraw wo as seeded normals.
+        scale = (cfg.q_heads_eff * cfg.resolved_head_dim) ** -0.5
+        with torch.no_grad():
+            for layer in params.layers:
+                layer.attn.wo.normal_(0.0, scale, generator=gen)
+        what.append(f"{cfg.num_heads}/{cfg.num_kv_heads} attention heads of "
+                    f"{cfg.resolved_head_dim}, every wo redrawn as seeded "
+                    f"normals at scale {scale!r} (the reference's init "
+                    f"leaves it at zero, so attention would not reach the "
+                    f"logits)")
+    if cfg.has_ssm:
+        what.append(f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, "
+                    f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    torch.cuda.synchronize()
+    log(f"[lm] {label} {cfg.name}: {'; '.join(what)}; vocab "
+        f"{cfg.vocab_padded} (padded), {n_params} parameters (f32 masters, "
+        f"{n_params * 4} B) initialized on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n_params != M.tree_param_count(cfg):
+        fail(f"{cfg.name}: {n_params} parameters, the reference's tree "
+             f"holds {M.tree_param_count(cfg)}")
+    rng = np.random.default_rng(seed)
     prompt = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32),
         device=DEV)
@@ -1302,23 +1502,36 @@ def lm_phase():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     FA.flash_attention.launches = 0
+    SSD.ssd_intra_chunk.launches = 0
     r = serve.generate(params, cfg, prompt, LM_GEN, use_kernel=True)
-    launches = FA.flash_attention.launches
+    launches = {"flash_attention": FA.flash_attention.launches,
+                "ssd_intra_chunk": SSD.ssd_intra_chunk.launches}
     peak = torch.cuda.max_memory_allocated()
     steps = LM_GEN - 1
-    log(f"[lm] serve --use-kernel: prefill {LM_BATCH}x{LM_PROMPT} in "
-        f"{r.prefill_s * 1e3!r} ms ({LM_BATCH * LM_PROMPT / r.prefill_s!r} "
-        f"tokens/s), {steps} decode steps in {r.decode_s * 1e3!r} ms "
-        f"({r.decode_s * 1e3 / steps!r} ms per step, "
-        f"{steps * LM_BATCH / r.decode_s!r} tokens/s), peak memory {peak} B; "
-        f"kernel 4 launches {launches}; sample tokens "
+    log(f"[lm] {label} serve --use-kernel: prefill {LM_BATCH}x{LM_PROMPT} "
+        f"in {r.prefill_s * 1e3!r} ms "
+        f"({LM_BATCH * LM_PROMPT / r.prefill_s!r} tokens/s), {steps} decode "
+        f"steps in {r.decode_s * 1e3!r} ms ({r.decode_s * 1e3 / steps!r} ms "
+        f"per step, {steps * LM_BATCH / r.decode_s!r} tokens/s), peak memory "
+        f"{peak} B; kernel 4 launches {launches['flash_attention']}, kernel "
+        f"5 launches {launches['ssd_intra_chunk']}; sample tokens "
         f"{r.tokens[0, :8].tolist()}")
-    if launches != cfg.num_layers:
-        fail(f"kernel 4 launched {launches} times in the prefill, not once "
-             f"per layer ({cfg.num_layers})")
+    for name, on_path in (("flash_attention", cfg.has_attention),
+                          ("ssd_intra_chunk", cfg.has_ssm)):
+        want = cfg.num_layers if on_path else 0
+        if launches[name] != want:
+            fail(f"{label}: {name} launched {launches[name]} times in the "
+                 f"prefill, not {want} (once per layer where the layer "
+                 f"runs it)")
     if r.tokens.shape != (LM_BATCH, LM_GEN) or not bool(
             ((r.tokens >= 0) & (r.tokens < cfg.vocab_padded)).all()):
-        fail("generated tokens out of shape or range")
+        fail(f"{label}: generated tokens out of shape or range")
+    routes = " and ".join(
+        x for x, on in (("kernel 4", cfg.has_attention),
+                        ("kernel 5", cfg.has_ssm)) if on)
+    plain = " and ".join(
+        x for x, on in (("chunked attention", cfg.has_attention),
+                        ("the SSD einsum", cfg.has_ssm)) if on)
 
     def prefill(c, use_kernel=False):
         cache = M.init_cache(c, LM_BATCH, LM_PROMPT, device=DEV)
@@ -1331,68 +1544,74 @@ def lm_phase():
         step's of one plain forward over the prompt and the tokens the
         decode steps of ``res`` were fed."""
         fed = torch.cat([prompt, res.tokens[:, :-1]], dim=1)
+        if c.has_ssm:
+            c = dataclasses.replace(c, ssm_chunk=largest_chunk(
+                c, fed.shape[1]))
         return M.forward(params, c, {"tokens": fed})[0][:, LM_PROMPT - 1:]
 
-    # The parity checks run at f32 on the same masters: in bf16 the 16
+    # The parity checks run at f32 on the same masters: in bf16 many
     # layers amplify the roundoff of a changed sum order past 5e-2 on the
-    # logits (the reference's own full and chunked attention routes differ
-    # by up to 0.07 there), while in f32 the routes differ by ~1e-5.
+    # logits (ROADMAP fact 5), while in f32 the routes differ by ~1e-5.
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     r32 = serve.generate(params, cfg32, prompt, LM_GEN, use_kernel=True)
     plain32 = prefill(cfg32)
-    err_pre = lm_close("f32 prefill logits, kernel 4 against the chunked "
-                       "route", r32.prefill_logits, plain32)
+    err_pre = lm_close(f"{label} f32 prefill logits, {routes} against "
+                       f"{plain}", r32.prefill_logits, plain32)
     tail32 = forward_tail(cfg32, r32)
-    err_fwd = lm_close("f32 prefill logits against the forward",
+    err_fwd = lm_close(f"{label} f32 prefill logits against the forward",
                        r32.prefill_logits, tail32[:, 0])
-    err_dec = max(lm_close(f"f32 decode step {t} against the forward", lg,
-                           tail32[:, t + 1])
+    err_dec = max(lm_close(f"{label} f32 decode step {t} against the "
+                           f"forward", lg, tail32[:, t + 1])
                   for t, lg in enumerate(r32.decode_logits))
     del tail32, r32
-    log(f"[check] 8b f32 (the same masters, activations in f32, kernel 4 "
-        f"in f32): prefill logits within {LM_TOL32} of the chunked route "
-        f"(max abs {err_pre!r}) and of the forward (max abs {err_fwd!r}); "
-        f"all {steps} decode steps within {LM_TOL32} of one forward over "
-        f"the prompt and the fed tokens (max abs {err_dec!r})")
-    # bf16, the served run: its prefill through kernel 4 and its decode
+    log(f"[check] {label} f32 (the same masters, activations in f32, "
+        f"{routes} in f32): prefill logits within {LM_TOL32} of the plain "
+        f"route ({plain}; max abs {err_pre!r}) and of the forward (max abs "
+        f"{err_fwd!r}); all {steps} decode steps within {LM_TOL32} of one "
+        f"forward over the prompt and the fed tokens (max abs {err_dec!r})")
+    # bf16, the served run: its prefill through the kernels and its decode
     # steps no less accurate than the plain bf16 routes, against f32
     plain16 = prefill(cfg)
     (e_pre, p_pre, o_pre) = lm_as_accurate(
-        "bf16 prefill logits through kernel 4", r.prefill_logits, plain16,
-        plain32)
+        f"{label} bf16 prefill logits through {routes}", r.prefill_logits,
+        plain16, plain32)
     tail16, tail32 = forward_tail(cfg, r), forward_tail(cfg32, r)
-    dec = [lm_as_accurate(f"bf16 decode step {t}", lg, tail16[:, t + 1],
-                          tail32[:, t + 1])
+    dec = [lm_as_accurate(f"{label} bf16 decode step {t}", lg,
+                          tail16[:, t + 1], tail32[:, t + 1])
            for t, lg in enumerate(r.decode_logits)]
-    # the spread of the reference's own two plain routes in bf16: the
-    # chunked prefill against the forward (full_attention: 2064 keys are
-    # no multiple of 512) at the prompt's last position
+    # the spread of two plain routes in bf16 (the prefill and the forward,
+    # other sum orders) at the prompt's last position
     spread = (plain16.float() - tail16[:, 0].float()).abs()
     over = int((spread > LM_TOL + LM_TOL * tail16[:, 0].float().abs()).sum())
-    log(f"[lm] 8b bf16: the reference's two plain routes (chunked prefill, "
-        f"full-attention forward) give prefill logits up to "
+    log(f"[lm] {label} bf16: two plain routes (the prefill, the forward "
+        f"over the prompt and the fed tokens) give prefill logits up to "
         f"{float(spread.max())!r} apart ({over} of {spread.numel()} over "
         f"the elementwise {LM_TOL} bar); in f32 the kernel route is "
-        f"{err_pre!r} off the chunked route")
+        f"{err_pre!r} off the plain route")
     del tail16, tail32, plain32, plain16, spread
-    log(f"[check] 8b bf16 against f32 (max abs, rms): prefill through "
-        f"kernel 4 {e_pre!r}, the chunked route {p_pre!r} ({o_pre} logits "
-        f"of {r.prefill_logits.numel()} off the chunked route's by more "
+    log(f"[check] {label} bf16 against f32 (max abs, rms): prefill through "
+        f"{routes} {e_pre!r}, the plain route {p_pre!r} ({o_pre} logits "
+        f"of {r.prefill_logits.numel()} off the plain route's by more "
         f"than the elementwise {LM_TOL} bar); decode steps worst "
         f"{max(d[0][0] for d in dec)!r} max, "
         f"{max(d[0][1] for d in dec)!r} rms, the forward's "
         f"{max(d[1][0] for d in dec)!r}, {max(d[1][1] for d in dec)!r} "
         f"({sum(d[2] for d in dec)} of {steps * r.prefill_logits.numel()} "
         f"off the bf16 forward's by more than {LM_TOL}); all finite")
-    lm_profile(params, cfg, prompt)
+    lm_profile(label, params, cfg, prompt)
     return launches
 
 
-def lm_profile(params, cfg, prompt):
-    """Where phase 8b's time goes: one prefill through kernel 4 and then
-    four decode steps under torch.profiler, each printed as the device
-    time by kernel (the largest first), the device's busy share of the
-    host wall clock, and the wall clock itself (profiled: inflated)."""
+# the kernels' names in a profile: kernel 4's and kernel 5's
+PROFILED = (("kernel 4", "flash_fwd"), ("kernel 5", "ssd_intra"))
+
+
+def lm_profile(label, params, cfg, prompt):
+    """Where a served model's time goes: one prefill through the kernels
+    and then four decode steps under torch.profiler, each printed as the
+    device time by kernel (the largest first), kernels 4 and 5's shares,
+    the device's busy share of the host wall clock, and the wall clock
+    itself (profiled: inflated)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import model as M
@@ -1406,8 +1625,8 @@ def lm_profile(params, cfg, prompt):
         for _ in range(4):
             M.decode_step(params, cfg, tok, cache)
 
-    for label, fn in (("prefill", run_prefill), ("4 decode steps",
-                                                 run_decode)):
+    for window, fn in (("prefill", run_prefill), ("4 decode steps",
+                                                  run_decode)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1420,9 +1639,17 @@ def lm_profile(params, cfg, prompt):
                    and e.self_device_time_total > 0]
         kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
         busy = sum(e.self_device_time_total for e in kernels)
-        log(f"[lm] profile, {label}: device busy {busy:.1f} us of "
+        shares = []
+        for name, key in PROFILED:
+            us = sum(e.self_device_time_total for e in kernels
+                     if key in e.key)
+            if us:
+                shares.append(f"{name} {us:.1f} us ({us / busy!r} of the "
+                              f"device time)")
+        log(f"[lm] {label} profile, {window}: device busy {busy:.1f} us of "
             f"{wall_us:.1f} us wall ({busy / wall_us!r} busy share), "
-            f"{sum(e.count for e in kernels)} kernel launches")
+            f"{sum(e.count for e in kernels)} kernel launches"
+            + (f"; {', '.join(shares)}" if shares else ""))
         for e in kernels[:10]:
             log(f"[lm]   {e.self_device_time_total:12.1f} us "
                 f"{e.count:5d}x  {e.key[:100]}")
@@ -1662,15 +1889,18 @@ def main() -> int:
 
     # -- phase 4: streaming with hierarchical partitions ---------------------
     log(f"[time] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
-    g = cases["pagerank"][1]
-    scfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=T2_PAGERANK,
-                        subblocks=SUB, max_iterations=STREAM_CAP)
-    batches = [synthetic_stream(g, 1, 10, seed=11, delete_frac=0.0)[0],
-               synthetic_stream(g, 1, 200, seed=13, delete_frac=0.2)[0]]
-    masked_launches, se = stream_phase("pagerank stream", g, A.pagerank(),
+    g = cases["pagerank"][1]  # phase 6's graph
+    del cases
+    gp = G.core_periphery_graph(PR_STREAM_N, avg_deg=AVG_DEG, seed=1,
+                                chords=1)
+    scfg = EngineConfig(block_size=BLOCK, width=WIDTH,
+                        t2=T2 * 20000 / PR_STREAM_N, subblocks=SUB,
+                        max_iterations=STREAM_CAP)
+    batches = [synthetic_stream(gp, 1, 10, seed=11, delete_frac=0.0)[0],
+               synthetic_stream(gp, 1, 200, seed=13, delete_frac=0.2)[0]]
+    masked_launches, se = stream_phase("pagerank stream", gp, A.pagerank(),
                                        scfg, batches, exact=False)
-    gq = cases["sssp"][1]
-    del se, cases
+    del se, gp
     gs = G.powerlaw_graph(SSSP_STREAM_N, avg_deg=AVG_DEG, seed=2,
                           weighted=True)
     scfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=T2, subblocks=SUB,
@@ -1684,9 +1914,10 @@ def main() -> int:
         fail("the masked kernel never launched on the streaming path")
     se_sssp = se
 
-    # -- phase 5a: query serving at n = 2^21 through kernel 1l ---------------
+    # -- phase 5a: query serving at n = 2^20 through kernel 1l ---------------
     log(f"[time] phase 5a starts at {time.perf_counter() - t_start:.1f} s")
     t0 = time.perf_counter()
+    gq = G.powerlaw_graph(SERVE_N, avg_deg=AVG_DEG, seed=2, weighted=True)
     qcfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=SERVE_T2,
                         max_iterations=SERVE_CAP)
     se = StreamingEngine(gq, A.pagerank(), qcfg, device=DEV)
@@ -1705,7 +1936,7 @@ def main() -> int:
                          weighted=True)[0])[0]
     if lane_launches == 0:
         fail("5a: the lane kernel never launched on the serving path")
-    del se
+    del se, gq
 
     # -- phase 5b: query serving at S = 8 through kernel 1lm -----------------
     log(f"[time] phase 5b starts at {time.perf_counter() - t_start:.1f} s")
@@ -1762,7 +1993,22 @@ def main() -> int:
         f"{torch.cuda.memory_reserved()} B reserved")
     fa_errs, fa_t = attention_phase()
     log(f"[time] phase 8b starts at {time.perf_counter() - t_start:.1f} s")
-    fa_launches = lm_phase()
+    lm_launches = {"8b": lm_phase("8b", LM_ARCH, LM_SEED)}
+    # -- phase 8c-e: kernel 5, and the SSM and hybrid families -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] phase 8c starts at {time.perf_counter() - t_start:.1f} s")
+    ssd_errs, ssd_t = ssd_phase()
+    log(f"[time] phase 8d starts at {time.perf_counter() - t_start:.1f} s")
+    lm_launches["8d"] = lm_phase("8d", SSM_ARCH, SSM_SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] phase 8e starts at {time.perf_counter() - t_start:.1f} s")
+    lm_launches["8e"] = lm_phase("8e", HYBRID_ARCH, HYBRID_SEED)
+    log(f"[lm] kernel launches on the served prefills: {lm_launches}")
+    fa_launches, ssd_launches = (
+        sum(n[key] for n in lm_launches.values())
+        for key in ("flash_attention", "ssd_intra_chunk"))
 
     # -- phase 7: the kernels line, the card, and the result -----------------
     t, tm = times["pagerank"], times[("pagerank", 1.0)]
@@ -1808,7 +2054,14 @@ def main() -> int:
              launches=fa_launches, max_abs_err=max(fa_errs.values()),
              ms=fa_t["ms"], plain_ms=fa_t["plain_ms"],
              bound_ms=fa_t["bound_ms"], bound_by=fa_t["bound_by"],
-             library_ms=fa_t["library_ms"])]
+             library_ms=fa_t["library_ms"]),
+        dict(name="ssd_intra_chunk", route="cuda",
+             source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:26",
+             launches=ssd_launches, max_abs_err=max(ssd_errs.values()),
+             ms=ssd_t["ms"], plain_ms=ssd_t["plain_ms"],
+             bound_ms=ssd_t["bound_ms"], bound_by=ssd_t["bound_by"],
+             library_ms=ssd_t["library_ms"])]
     log(f"[done] in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

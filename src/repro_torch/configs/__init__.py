@@ -123,8 +123,9 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig, *, concrete=False,
 def cache_specs(cfg: ArchConfig, shape: ShapeConfig, *, concrete=False,
                 batch_override: int | None = None,
                 seq_override: int | None = None, device="cuda") -> dict:
-    """A zero cache for decode shapes (``model.init_cache``). Only
-    ``concrete=True`` is supported."""
+    """A zero cache for decode shapes (``model.init_cache``: K/V where the
+    family has attention, f32 SSM states and conv windows where it has an
+    SSM). Only ``concrete=True`` is supported."""
     from repro_torch.models import model as model_lib
     if not concrete:
         raise NotImplementedError(

@@ -113,23 +113,23 @@ def engine_from_arrays(program: VertexProgram, config: EngineConfig,
 
 
 def lm_params_from_arrays(cfg: ArchConfig, tree: dict, device="cuda"):
-    """The port's dense decoder (:class:`repro_torch.models.model.Model`)
-    holding the reference's parameter pytree ``tree`` (numpy leaves, the
+    """The port's decoder (:class:`repro_torch.models.model.Model`) holding
+    the reference's parameter pytree ``tree`` (numpy leaves, the
     reference's names: ``embed``, ``ln_f``, ``lm_head`` where untied, and
-    ``layers`` with stacked ``ln1``, ``ln2``, ``attn/*``, ``mlp/*``)."""
+    ``layers`` with every layer group the tree has, stacked: ``ln1``,
+    ``ln2``, ``attn/*``, ``ssm/*``, ``mlp/*``)."""
     from repro_torch.models.model import Model
     model = Model(cfg, device)
     named = dict(model.named_parameters())
     want = {"embed": tree["embed"], "ln_f": tree["ln_f"]}
     if "lm_head" in named:
         want["lm_head"] = tree["lm_head"]
-    layers = tree["layers"]
-    for i in range(cfg.num_layers):
-        for key in ("ln1", "ln2"):
-            want[f"layers.{i}.{key}"] = layers[key][i]
-        for group in ("attn", "mlp"):
-            for key, a in layers[group].items():
-                want[f"layers.{i}.{group}.{key}"] = a[i]
+    for key, leaf in tree["layers"].items():
+        groups = leaf.items() if isinstance(leaf, dict) else [(None, leaf)]
+        for sub, a in groups:
+            name = key if sub is None else f"{key}.{sub}"
+            for i in range(cfg.num_layers):
+                want[f"layers.{i}.{name}"] = a[i]
     if set(want) != set(named):
         raise KeyError(f"parameters differ: missing "
                        f"{sorted(set(named) - set(want))}, unexpected "

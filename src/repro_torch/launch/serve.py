@@ -3,14 +3,19 @@
 The port of ``repro/launch/serve.py``: batches requests, prefills them
 together, then decodes greedily, ``--gen`` tokens in all (the first from
 the prefill, then ``--gen - 1`` decode steps). It runs on the card unless
-``--device cpu`` is given; ``--use-kernel`` routes the prefill's attention
-through kernel 4 (the reference's ``use_pallas``), which needs a prompt
-length that is a multiple of 128. The dense family only: the other
-families raise ``NotImplementedError``.
+``--device cpu`` is given. ``--use-kernel`` (the reference's
+``use_pallas``) routes the prefill's attention through kernel 4, which
+needs a prompt length that is a multiple of 128, and the SSM's intra-chunk
+term through kernel 5 (the port's own route: the reference's SSM has
+none). The dense, ssm and hybrid families serve; an SSM prompt longer than
+the chunk (``ssm_chunk``, 256) must be a multiple of it. The moe, vlm and
+audio families raise ``NotImplementedError``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3p2_1b \\
         --batch 4 --prompt-len 2048 --gen 16 --use-kernel
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3p2_1b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2p7b \\
+        --batch 4 --prompt-len 2048 --gen 16 --use-kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2p7b \\
         --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
 """
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import flash_attention as kernel4
+from repro_torch.kernels import ssd_scan as kernel5
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ArchConfig
 
@@ -48,12 +54,17 @@ def generate(params: model_lib.Model, cfg: ArchConfig, prompt: torch.Tensor,
     """Prefill ``prompt`` (B, S) int32, then decode greedily from position
     S: ``gen`` tokens, ``gen - 1`` decode steps."""
     b, s = prompt.shape
-    if use_kernel and s % kernel4.BLOCK:
+    if use_kernel and cfg.has_attention and s % kernel4.BLOCK:
         raise ValueError(f"--use-kernel needs a prompt length that is a "
-                         f"multiple of {kernel4.BLOCK}, got {s}")
+                         f"multiple of {kernel4.BLOCK} where the model has "
+                         f"attention, got {s}")
     device = prompt.device
     if use_kernel and device.type == "cuda":
-        kernel4.load_library()  # built here, not inside the timed prefill
+        # built here, not inside the timed prefill
+        if cfg.has_attention:
+            kernel4.load_library()
+        if cfg.has_ssm:
+            kernel5.load_library()
     cache = model_lib.init_cache(cfg, b, s + gen, device=device)
     _sync(device)
     t0 = time.perf_counter()
@@ -86,7 +97,8 @@ def main(argv=None) -> np.ndarray:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     ap.add_argument("--use-kernel", action="store_true",
-                    help="prefill attention through kernel 4")
+                    help="prefill attention through kernel 4, the SSM's "
+                         "intra-chunk term through kernel 5")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)

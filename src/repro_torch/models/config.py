@@ -2,7 +2,11 @@
 
 A copy of the reference's ``repro/models/config.py``, field for field, so
 that every config file of ``repro_torch.configs`` loads. The port serves
-the dense family; the other families' fields are kept as data."""
+the dense, ssm and hybrid families; the other families' fields are kept as
+data. ``param_count`` is the reference's analytic count (for roofline
+math): it leaves out the SSM's dt_bias, a_log, d_skip, conv_w and
+ssm_norm, and counts an ln2 that an arch without a feed-forward width
+(mamba2) does not have."""
 from __future__ import annotations
 
 import dataclasses

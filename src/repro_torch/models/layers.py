@@ -21,6 +21,13 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (x * weight.float()).to(dt)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference's SSM runs it: x * (1 / (1 +
+    exp(-x))), each op rounded to x's dtype (in bf16 ``F.silu`` rounds once
+    and differs from it by an ulp on a third of the inputs)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ w_gate) * (x @ w_up)

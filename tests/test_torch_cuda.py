@@ -426,3 +426,133 @@ def test_prefill_with_kernel_matches_plain_route(card, arch):
     for key in ("k", "v"):
         torch.testing.assert_close(ck[key].float(), cp[key].float(),
                                    rtol=5e-2, atol=5e-2)
+
+
+def _ssd_inputs(gen, g, q, n, p, h=None, decay=0.1):
+    lead = (g, q) if h is None else (g, q, h)
+    c, b = (torch.randn(g, q, n, generator=gen, device="cuda")
+            for _ in range(2))
+    u = torch.randn(*lead, p, generator=gen, device="cuda")
+    ld = torch.cumsum(-decay * torch.rand(*lead, generator=gen,
+                                          device="cuda"), dim=1)
+    return c, b, u, ld
+
+
+def _ssd_close(got, want, rtol, afac):
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=afac * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("g,q,n,p", [(4, 64, 32, 16), (2, 128, 128, 64),
+                                     (6, 128, 64, 128), (3, 100, 16, 32),
+                                     (2, 256, 128, 64), (2, 256, 16, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_intra_chunk_matches_plain(card, g, q, n, p, dtype):
+    """Kernel 5 against its plain version on the card, on the same inputs:
+    the reference test's shapes, a ragged Q, and the models' chunk; f32 at
+    rtol=1e-5, atol=1e-4 * max|y| (the plain version's matmuls in full
+    f32), bf16 at 2e-2 * max|y|."""
+    from repro_torch.kernels import ssd_scan as SSD
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    gen = torch.Generator(device="cuda").manual_seed(g * q + n + p)
+    c, b, u, ld = (t.to(getattr(torch, dtype)) if t.dim() == 3 else t
+                   for t in _ssd_inputs(gen, g, q, n, p))
+    n0 = SSD.ssd_intra_chunk.launches
+    got = SSD.ssd_intra_chunk(c, b, u, ld)
+    want = SSD.ssd_intra_chunk_ref(c, b, u, ld)
+    torch.cuda.synchronize()
+    assert SSD.ssd_intra_chunk.launches == n0 + 1
+    assert got.dtype == u.dtype and got.shape == u.shape
+    assert torch.isfinite(got.float()).all()
+    tol = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+    _ssd_close(got, want, *tol)
+
+
+def test_ssd_intra_chunk_heads_form_and_views(card):
+    """The heads form (b and c shared by the heads, u and ld read in the
+    model's strided layout) equals the one-head form on each head; the
+    wrapper takes strided views and mixed dtypes (f32 c and b, bf16 u:
+    the result in u's dtype), keeps finite where exp(l_q - l_s) overflows
+    above the diagonal, and refuses a P the kernel lacks."""
+    from repro_torch.kernels import ssd_scan as SSD
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    g, q, n, p, h = 4, 256, 128, 64, 5
+    c, b, u, ld = _ssd_inputs(gen, g, q, n, p, h=h, decay=2.0)
+    assert float((-ld[:, -1]).max()) > 88.7  # overflows above the diagonal
+    got = SSD.ssd_intra_chunk(c, b, u, ld)
+    assert torch.isfinite(got).all()
+    for i in range(h):
+        one = SSD.ssd_intra_chunk(c, b, u[:, :, i], ld[:, :, i])
+        _ssd_close(got[:, :, i], one, 1e-5, 1e-4)
+    _ssd_close(got, SSD.ssd_intra_chunk_ref(c, b, u, ld), 1e-5, 1e-4)
+    ut = u.transpose(0, 1).contiguous().transpose(0, 1)  # a strided view
+    _ssd_close(SSD.ssd_intra_chunk(c, b, ut, ld), got, 1e-5, 1e-4)
+    mixed = SSD.ssd_intra_chunk(c, b, u.bfloat16(), ld)
+    assert mixed.dtype == torch.bfloat16
+    _ssd_close(mixed, SSD.ssd_intra_chunk_ref(c, b, u.bfloat16(), ld),
+               2e-2, 2e-2)
+    with pytest.raises(ValueError, match="the kernel takes P"):
+        SSD.ssd_intra_chunk(c, b, u[..., :8], ld)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_2p7b", "hymba_1p5b"])
+def test_ssm_prefill_with_kernel_matches_plain_route(card, arch):
+    """prefill(use_kernel=True) against prefill(use_kernel=False) on the
+    card at a reduced config (head dims 64, the models' chunk of 256) in
+    f32, every wo drawn nonzero: kernel 5 (and kernel 4 for hymba)
+    launched once per layer, the logits and caches within 1e-4."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models import model as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.reduced(configs.get(arch)),
+                              head_dim=64, ssm_head_dim=64, ssm_state=16,
+                              ssm_chunk=256, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = M.init_params(cfg, gen)
+    if cfg.has_attention:
+        with torch.no_grad():
+            for layer in params.layers:
+                layer.attn.wo.normal_(0.0, (cfg.num_heads * 64) ** -0.5,
+                                      generator=gen)
+    tok = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen,
+                        device="cuda")
+    out = {}
+    for use_kernel in (True, False):
+        cache = M.init_cache(cfg, 2, 516)
+        n4, n5 = FA.flash_attention.launches, SSD.ssd_intra_chunk.launches
+        out[use_kernel] = M.prefill(params, cfg, {"tokens": tok}, cache,
+                                    use_kernel=use_kernel)
+        want = cfg.num_layers if use_kernel else 0
+        assert SSD.ssd_intra_chunk.launches - n5 == want
+        assert FA.flash_attention.launches - n4 == (
+            want if cfg.has_attention else 0)
+    (lk, ck), (lp, cp) = out[True], out[False]
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
+    for key in set(ck) - {"pos"}:
+        torch.testing.assert_close(ck[key], cp[key], rtol=1e-4, atol=1e-4)
+
+
+def test_flash_attention_at_hymba_heads(card):
+    """Kernel 4 at hymba_1p5b's heads: 25 q heads over 5 kv heads, an odd
+    GQA group, D = 64."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get("hymba_1p5b")
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        q, k, v = (torch.randn(2, h, 256, d, generator=gen,
+                               device="cuda").to(dtype)
+                   for h in (hq, hkv, hkv))
+        got = FA.flash_attention(q, k, v)
+        want = FA.flash_attention_ref(q, k, v)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)

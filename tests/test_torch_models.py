@@ -1,7 +1,8 @@
-"""The port's dense decoders against the reference's, on shared weights.
+"""The port's decoders against the reference's, on shared weights.
 
-Both packages run the four dense archs at ``configs.reduced`` on the same
-parameters: the reference's ``init_params`` as numpy, handed to the port by
+Both packages run the four dense archs, ``mamba2_2p7b`` (ssm) and
+``hymba_1p5b`` (hybrid) at ``configs.reduced`` on the same parameters: the
+reference's ``init_params`` as numpy, handed to the port by
 ``repro_torch.interop.lm_params_from_arrays``. The reference initializes
 every ``wo`` to zero (its skip-init), and then the attention sublayer adds
 nothing to the residual stream: logits would agree whatever attention,
@@ -12,9 +13,11 @@ that attention then reaches the logits. The bar (ROADMAP fact 4):
 * logits at the reduced config's bf16: rtol=atol=5e-2 (the reference's own
   tolerance, ``tests/test_models.py``); with ``dtype="float32"``: 1e-4;
 * ``forward`` on the plain route, ``forward(use_kernel=True)`` at S = 128
-  against the reference's ``use_pallas=True`` (Pallas in interpret mode),
-  ``prefill`` + ``decode_step`` logits and caches, and, inside the port,
-  prefill + decode against ``forward``;
+  against the reference's ``use_pallas=True`` (Pallas in interpret mode;
+  the reference's SSM has no kernel route, so the port's kernel-5 route is
+  held against its einsum), ``prefill`` + ``decode_step`` logits and
+  caches (K/V, SSM states, conv windows), and, inside the port, prefill +
+  decode against ``forward``;
 * exact head padding (qwen3_14b): padded logits equal unpadded bitwise.
 """
 import dataclasses
@@ -35,8 +38,10 @@ from repro_torch.models import model as TM
 from repro_torch.models.config import ArchConfig
 
 DENSE = ["llama3p2_1b", "yi_6b", "qwen3_14b", "mistral_nemo_12b"]
-OTHERS = ["mamba2_2p7b", "deepseek_moe_16b", "granite_moe_3b_a800m",
-          "phi3_vision_4p2b", "hymba_1p5b", "whisper_base"]
+SSM = ["mamba2_2p7b", "hymba_1p5b"]
+MODELS = DENSE + SSM
+OTHERS = ["deepseek_moe_16b", "granite_moe_3b_a800m", "phi3_vision_4p2b",
+          "whisper_base"]
 TOL = {"bfloat16": dict(rtol=5e-2, atol=5e-2),
        "float32": dict(rtol=1e-4, atol=1e-4)}
 
@@ -53,10 +58,13 @@ def _port_cfg(cfg):
 
 def _tree(cfg, seed=1):
     """The reference's parameters as numpy, with every layer's wo redrawn
-    as seeded normals at scale (Hq * Dh)^-0.5 (padded rows kept zero)."""
+    as seeded normals at scale (Hq * Dh)^-0.5 (padded rows kept zero)
+    where the arch has attention."""
     tree = jax.tree.map(np.asarray, JM.init_params(cfg,
                                                    jax.random.PRNGKey(seed)))
     tree = jax.tree.map(np.array, tree)  # writable copies
+    if not cfg.has_attention:
+        return tree
     dh = cfg.resolved_head_dim
     wo = tree["layers"]["attn"]["wo"]
     rng = np.random.default_rng(seed + 100)
@@ -81,7 +89,7 @@ def _np(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", MODELS)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_forward_matches_reference(name, dtype):
     cfg = _cfg(name, dtype)
@@ -96,12 +104,12 @@ def test_forward_matches_reference(name, dtype):
     np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", MODELS)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_kernel_route_matches_reference(name, dtype):
-    """``use_kernel=True`` (kernel 4's plain version on the CPU) against the
-    reference's ``use_pallas=True`` (its Pallas kernel, interpreted), at
-    S = 128."""
+    """``use_kernel=True`` (kernels 4 and 5's plain versions on the CPU)
+    against the reference's ``use_pallas=True`` (its Pallas flash kernel,
+    interpreted; its SSM stays on the einsum), at S = 128."""
     cfg = _cfg(name, dtype)
     jp, tp = _both(cfg, _tree(cfg))
     tok = _tokens(cfg, s=128)
@@ -112,7 +120,7 @@ def test_kernel_route_matches_reference(name, dtype):
     np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", MODELS)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_serving_matches_reference(name, dtype):
     """prefill of 16 tokens, then decode steps fed the true next tokens:
@@ -135,12 +143,14 @@ def test_serving_matches_reference(name, dtype):
                                 tc)
         np.testing.assert_allclose(_np(tl), _np(jl), **TOL[dtype])
     assert tc["pos"] == int(jc["pos"]) == s
-    for key in ("k", "v"):
-        assert tc[key].dtype == getattr(torch, dtype)
+    assert set(tc) == set(jc)
+    for key in set(tc) - {"pos"}:
+        assert tc[key].dtype == (torch.float32 if key == "ssm_state"
+                                 else getattr(torch, dtype)), key
         np.testing.assert_allclose(_np(tc[key]), _np(jc[key]), **TOL[dtype])
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", MODELS)
 def test_decode_matches_forward(name):
     """Inside the port: prefill + decode token by token equals the
     full-sequence forward (the reference's test_decode_matches_forward,
@@ -243,6 +253,115 @@ def test_init_params_matches_the_reference_layout():
         assert not layer.attn.wk[:, cfg.num_kv_heads * dh:].any()
         assert torch.all(layer.ln1 == 1)
     assert abs(float(model.embed.detach().std()) - 0.02) < 0.002
+
+
+@pytest.mark.parametrize("name", SSM)
+def test_ssm_init_params_match_the_reference_layout(name):
+    """The port's own init_params for the ssm and hybrid families: the
+    reference's names and shapes (``ln1`` and ``ssm`` only for mamba2),
+    the same draws from the same seed, wo at zero, norms and d_skip at
+    one, dt = softplus(dt_bias) in [1e-3, 1e-1] and exp(a_log) in [1, 16]
+    as the reference draws them."""
+    cfg = _cfg(name)
+    pcfg = _port_cfg(cfg)
+    model = TM.init_params(pcfg, torch.Generator().manual_seed(0))
+    again = dict(TM.init_params(pcfg, torch.Generator().manual_seed(0))
+                 .named_parameters())
+    ref = JM.init_params(cfg, jax.random.PRNGKey(0))
+    named = dict(model.named_parameters())
+    want = {k: ref[k] for k in ("embed", "ln_f", "lm_head") if k in ref}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(
+            ref["layers"])[0]:
+        keys = ".".join(p.key for p in path)
+        for i in range(cfg.num_layers):
+            want[f"layers.{i}.{keys}"] = leaf[i]
+    assert set(named) == set(want)
+    for n, p in named.items():
+        assert tuple(p.shape) == want[n].shape, n
+        assert torch.equal(p, again[n]), n
+    for layer in model.layers:
+        sp = layer.ssm
+        dt = torch.nn.functional.softplus(sp.dt_bias.detach())
+        assert float(dt.min()) >= 1e-3 * 0.999 and float(dt.max()) <= 0.1
+        a = torch.exp(sp.a_log.detach())
+        assert float(a.min()) >= 1.0 and float(a.max()) <= 16.0
+        for one in (sp.d_skip, sp.ssm_norm, layer.ln1):
+            assert torch.all(one == 1)
+        if cfg.has_attention:
+            assert not layer.attn.wo.any()
+    assert hasattr(model.layers[0], "mlp") == bool(cfg.d_ff)
+
+
+@pytest.mark.parametrize("name", ["llama3p2_1b", "qwen3_14b",
+                                  "mamba2_2p7b", "hymba_1p5b"])
+def test_reference_param_count_is_the_reference_tree(name):
+    """``tree_param_count`` (the full-size models' count check on the card)
+    equals the size of the reference's init_params tree at the published
+    config, and the port's Model holds that many at the
+    reduced one; ``param_count()`` (analytic) misses the SSM's vectors."""
+    cfg = JC.get(name)
+    shapes = jax.eval_shape(lambda: JM.init_params(cfg,
+                                                   jax.random.PRNGKey(0)))
+    total = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
+    assert TM.tree_param_count(_port_cfg(cfg)) == total
+    want = {"mamba2_2p7b": 2704590336, "hymba_1p5b": 1395924896}
+    if name in want:
+        assert total == want[name] != cfg.param_count()
+    small = _port_cfg(_cfg(name))
+    model = TM.Model(small, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == \
+        TM.tree_param_count(small)
+
+
+@pytest.mark.parametrize("name", SSM)
+def test_cache_specs_match_reference(name):
+    """The SSM families' caches: ssm_state in f32, conv windows (and K/V
+    for hymba) in the compute dtype, the reference's shapes."""
+    got = TC.cache_specs(TC.reduced(TC.get(name)), TC.SHAPES["decode_32k"],
+                         concrete=True, batch_override=2, seq_override=16,
+                         device="cpu")
+    ref = JC.cache_specs(JC.reduced(JC.get(name)), JC.SHAPES["decode_32k"],
+                         concrete=True, batch_override=2, seq_override=16)
+    assert set(got) == set(ref) and got["pos"] == 0
+    for key in set(ref) - {"pos"}:
+        assert tuple(got[key].shape) == ref[key].shape, key
+        assert str(got[key].dtype).split(".")[-1] == str(ref[key].dtype), key
+        assert not got[key].any()
+
+
+@pytest.mark.parametrize("name,prompt_len", [("mamba2_2p7b", 64),
+                                             ("hymba_1p5b", 128)])
+def test_serve_generates_ssm_families(name, prompt_len):
+    """``serve.generate`` with use_kernel for the ssm and hybrid families
+    on shared f32 weights picks the reference flow's tokens; the prompt
+    must be a multiple of 128 only where kernel 4 runs (mamba2 takes 64),
+    and a multiple of the chunk where it is longer than the chunk."""
+    cfg = _cfg(name, "float32")
+    jp, tp = _both(cfg, _tree(cfg))
+    prompt = _tokens(cfg, s=prompt_len)
+    r = serve.generate(tp, _port_cfg(cfg), torch.from_numpy(prompt), 5,
+                       use_kernel=True)
+    cache = JM.init_cache(cfg, 2, prompt_len + 5)
+    lg, cache = JM.prefill(jp, cfg, {"tokens": jnp.asarray(prompt)}, cache,
+                           use_pallas=True)
+    want = [jnp.argmax(lg, -1)]
+    decode = jax.jit(lambda p, x, c: JM.decode_step(p, cfg, x, c))
+    for _ in range(4):
+        lg, cache = decode(jp, want[-1][:, None].astype(jnp.int32), cache)
+        want.append(jnp.argmax(lg, -1))
+    assert np.array_equal(r.tokens.numpy(), np.stack(want, 1))
+    if cfg.has_attention:
+        with pytest.raises(ValueError, match="multiple of 128"):
+            serve.generate(tp, _port_cfg(cfg),
+                           torch.from_numpy(prompt[:, :96]), 2,
+                           use_kernel=True)
+    with pytest.raises(ValueError, match="not divisible"):
+        serve.generate(tp, _port_cfg(cfg), torch.from_numpy(
+            _tokens(cfg, s=cfg.ssm_chunk + 16)), 2)
+    out = serve.main(["--arch", name, "--reduced", "--device", "cpu",
+                      "--prompt-len", str(prompt_len), "--gen", "3",
+                      "--use-kernel"])
+    assert out.shape == (4, 3)
 
 
 @pytest.mark.parametrize("name", OTHERS)
