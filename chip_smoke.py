@@ -121,17 +121,22 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
 8. LM serving, after phase 6 (whose engines and caches are freed first).
    Each model phase draws from its own seed, so it shifts no earlier
    phase's draws.
-   a. Kernel 4 (csrc/flash_attention.cu) against its plain version on the
-      card, the plain version's f32 matmuls without TF32: seeded q, k, v
-      at the four dense archs' head shapes (llama3p2_1b, yi_6b, qwen3_14b,
-      mistral_nemo_12b), B = 2, S in (128, 2048), causal and full, f32 at
-      2e-5 and bf16 at 2e-2. Then one call timed at llama3p2_1b's prefill
-      shape (B = 4, Hq = 32, Hkv = 8, S = 2048, D = 64, bf16, causal):
-      the kernel, its plain version, and scaled_dot_product_attention as
-      the library yardstick (timed only, never on the path), beside the
-      bound (the larger of the flops at the bf16 rate and the bytes). Then
-      hymba_1p5b's heads (Hq = 25, Hkv = 5, D = 64: an odd GQA group) at
-      the same S, masks and tolerances, from a generator of their own.
+   a. Kernel 4 (csrc/flash_attention.cu: bf16 on the tensor cores, f32 on
+      the CUDA cores) against its plain version on the card, the plain
+      version's f32 matmuls without TF32: seeded q, k, v at the four dense
+      archs' head shapes (llama3p2_1b, yi_6b, qwen3_14b, mistral_nemo_12b),
+      B = 2, S in (128, 2048), causal and full, f32 at 2e-5 and bf16 at
+      2e-2. Then bf16 calls at three prefill shapes (B = 4, S = 2048,
+      causal), on q, k, v drawn as the model's (B, S, H, D) projections and
+      transposed to (B, H, S, D) views, which the bf16 route reads in place:
+      llama3p2_1b's heads (32/8 x 64), yi_6b's (32/4 x 128) and
+      hymba_1p5b's (25/5 x 64), each held against the plain version at
+      2e-2, then timed beside scaled_dot_product_attention
+      as the library yardstick (timed only, never on the path) and the
+      bound (the larger of the flops at the bf16 rate and the bytes), with
+      TFLOP/s; the plain version timed at llama3p2_1b's shape, and the f32
+      route once there. Then hymba_1p5b's heads (an odd GQA group) at the
+      same S, masks and tolerances, from a generator of their own.
    b. llama3p2_1b at its published width and depth (16 layers, d = 2048,
       1.24B parameters) from the port's init_params on the card, every
       layer's wo redrawn as seeded normals (the reference's init leaves it
@@ -1201,8 +1206,9 @@ def distributed_phase(g, pr_base, rng, t_start):
 
 def attention_phase():
     """Phase 8a: kernel 4 against its plain version on the card at the
-    dense archs' head shapes, then one call timed at llama3p2_1b's prefill
-    shape. Returns the largest error per dtype and the times."""
+    dense archs' and hymba_1p5b's head shapes, and at three prefill shapes
+    on transposed views, where it is also timed. Returns the largest error
+    per dtype and the times at llama3p2_1b's prefill shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch import configs
@@ -1244,27 +1250,61 @@ def attention_phase():
         f"{', '.join(LM_DENSE)}, B=2, S in (128, 2048), causal and full: max "
         f"abs error f32 {errs[torch.float32]!r} (tolerance 2e-5), bf16 "
         f"{errs[torch.bfloat16]!r} (tolerance 2e-2)")
-    # one call at llama3p2_1b's prefill shape, bf16, causal
+    # kernel 4 at three prefill shapes (B = 4, S = 2048, bf16, causal) on
+    # the model's transposed (B, S, H, D) projections, which the bf16 route
+    # reads in place: held against its plain version, then timed beside SDPA
+    # and the bound; the plain version timed at llama3p2_1b's alone
     b, s = LM_BATCH, LM_PROMPT
+    timed = {}
+    for arch in (LM_ARCH, "yi_6b", HYBRID_ARCH):
+        hq, hkv, d = heads(arch)
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=DEV).to(
+            torch.bfloat16).transpose(1, 2) for h in (hq, hkv, hkv))
+        got = FA.flash_attention(q, k, v).float()
+        want = FA.flash_attention_ref(q, k, v).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if got.shape != q.shape or not bool(torch.isfinite(got).all()) \
+                or not torch.allclose(got, want, rtol=2e-2, atol=2e-2):
+            fail(f"kernel 4 {arch} B={b} S={s} on transposed bf16 views: off "
+                 f"its plain version by {err!r} (tolerance 2e-2)")
+        errs[torch.bfloat16] = max(errs[torch.bfloat16], err)
+        del got, want
+        ms = cuda_ms(lambda: FA.flash_attention(q, k, v), 20)
+        plain_ms = cuda_ms(lambda: FA.flash_attention_ref(q, k, v), 3) \
+            if arch == LM_ARCH else None
+        # library yardstick (timed here only, never on the path)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20)
+        flops = 2 * b * hq * s * s * d
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # o out
+        bound_ms = max(flops / BF16_FLOPS_PER_S,
+                       nbytes / HBM_BYTES_PER_S) * 1e3
+        bound_by = "operations" if flops / BF16_FLOPS_PER_S \
+            >= nbytes / HBM_BYTES_PER_S else "bytes"
+        timed[arch] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[kernel] 8a: kernel 4 at {arch}'s prefill shape, B={b} Hq={hq} "
+            f"Hkv={hkv} S={s} D={d} bf16 causal, transposed views: max abs "
+            f"error {err!r} against its plain version (tolerance 2e-2); "
+            f"kernel {ms!r} ms at "
+            f"{flops / ms / 1e9:.4g} TFLOP/s, scaled_dot_product_attention "
+            f"{library_ms!r} ms at {flops / library_ms / 1e9:.4g} TFLOP/s, "
+            f"bound {bound_ms!r} ms ({bound_by}: {flops} flops at "
+            f"{BF16_FLOPS_PER_S:.4g}/s, {nbytes} B at "
+            f"{HBM_BYTES_PER_S:.3g} B/s)"
+            + (f", plain {plain_ms!r} ms" if plain_ms is not None else ""))
+    # the f32 route (CUDA cores) once at llama3p2_1b's shape
     hq, hkv, d = heads(LM_ARCH)
-    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=DEV).to(
-        torch.bfloat16) for h in (hq, hkv, hkv))
-    ms = cuda_ms(lambda: FA.flash_attention(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: FA.flash_attention_ref(q, k, v), 3)
-    # library yardstick (timed here only, never on the path)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 20)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=DEV)
+               for h in (hq, hkv, hkv))
+    ms = cuda_ms(lambda: FA.flash_attention(q, k, v), 5)
     flops = 2 * b * hq * s * s * d
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in, o out
-    bound_ms = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-    bound_by = "operations" if flops / BF16_FLOPS_PER_S \
-        >= nbytes / HBM_BYTES_PER_S else "bytes"
-    log(f"[kernel] 8a: kernel 4 at B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 "
-        f"causal: kernel {ms!r} ms, plain {plain_ms!r} ms, "
-        f"scaled_dot_product_attention {library_ms!r} ms, bound {bound_ms!r} "
-        f"ms ({bound_by}: {flops} flops at {BF16_FLOPS_PER_S:.4g}/s, "
-        f"{nbytes} B at {HBM_BYTES_PER_S:.3g} B/s); kernel at "
-        f"{flops / ms / 1e9:.4g} TFLOP/s")
+    log(f"[kernel] 8a: kernel 4's f32 route at {LM_ARCH}'s prefill shape: "
+        f"{ms!r} ms at {flops / ms / 1e9:.4g} TFLOP/s (the f32 CUDA-core "
+        f"rate {F32_FLOPS_PER_S / 1e12:.4g} TFLOP/s: "
+        f"{flops / F32_FLOPS_PER_S * 1e3!r} ms)")
+    del q, k, v
     # hymba_1p5b's heads (25 q heads over 5 kv heads: an odd GQA group),
     # from a generator of their own so that the draws above stay as they
     # were
@@ -1292,8 +1332,7 @@ def attention_phase():
         f"{HYBRID_ARCH}'s heads (Hq={hq}, Hkv={hkv}, D={d}), B=2, S in (128, "
         f"2048), causal and full: max abs error f32 {hy[torch.float32]!r}, "
         f"bf16 {hy[torch.bfloat16]!r}")
-    return errs, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                      bound_ms=bound_ms, bound_by=bound_by)
+    return errs, timed[LM_ARCH]
 
 
 def lm_close(label, got, want):

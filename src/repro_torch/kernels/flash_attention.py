@@ -6,11 +6,24 @@ The kernel replaces the reference's Pallas kernel
 ``repro/models/model.py::_attention_block`` calls under ``use_pallas`` on
 the prefill and full-sequence forward: causal (or full) GQA attention with
 an online softmax, q (B, Hq, S, D) and k, v (B, Hkv, S, D), Hq % Hkv == 0,
-S % 128 == 0, f32 or bf16 in, the output in q's dtype. The kernel is
-``repro_torch/csrc/flash_attention.cu``; its source note gives the design
-(a thread block per (batch * q head, 64-row q tile), 64-key K/V tiles
-streamed through shared memory, f32 arithmetic on the CUDA cores) and what
-bounds it. It takes D in (64, 128); another head dim raises.
+S % 128 == 0, f32 or bf16 in, the output contiguous in q's dtype. The
+kernel is ``repro_torch/csrc/flash_attention.cu``; its source note gives
+the design and what bounds it. It takes D in (64, 128); another head dim
+raises. Two routes:
+
+* bf16: Hopper's tensor cores. One persistent block per SM (two consumer
+  warpgroups of 64 q rows and a producer warpgroup) walks (128-row q tile,
+  batch * q head) items; 128-key K/V tiles arrive by TMA in two-stage rings;
+  S = q k^T and O += P v are ``wgmma`` products with f32 accumulators in
+  registers, P rounded to bf16 as the register operand, one tile's softmax
+  overlapping the products. The kernel reads q, k and v through their
+  strides (the last one unit, the others multiples of 8 elements), so the
+  model's transposed views cost no copy; other strides are made contiguous
+  first.
+* f32: f32 FMAs on the CUDA cores (a block per (batch * q head, 64-row q
+  tile), 64-key tiles through shared memory), on contiguous tensors. TF32
+  would miss the f32 bar of 2e-5 by 50-100x; a 3xTF32 split on the tensor
+  cores is later work.
 
 :func:`flash_attention` launches the kernel for tensors on a CUDA device
 and runs :func:`flash_attention_ref`, the same function in plain torch, for
@@ -43,13 +56,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{BLOCK} == 0, got Hq={hq}, Hkv={hkv}, S={s}")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_cuda(q, k, v)
-    out = torch.empty_like(q)
+    if q.dtype == torch.float32:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    else:
+        q, k, v = (t if _strides_ok(t) else t.contiguous() for t in (q, k, v))
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention: inputs must be 16-byte "
+                             "aligned")
+    out = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
     lib = _lib()
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        s, d, int(causal), DTYPES[q.dtype], 1.0 / d ** 0.5,
+        s, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+        DTYPES[q.dtype], 1.0 / d ** 0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError("flash_attention launch failed: "
@@ -69,9 +90,10 @@ def load_library() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                               i, ctypes.c_float, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i,
+                                               *[ll] * 9, i, i,
+                                               ctypes.c_float, p]
         lib.flash_attention_launch.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -94,17 +116,20 @@ def _check_cuda(q, k, v) -> None:
                              f"D) = {(b, k.shape[1], s, d)} {q.dtype} on "
                              f"{q.device}, got {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}")
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError("flash_attention: inputs must be 16-byte "
-                             "aligned")
+
+
+def _strides_ok(t: torch.Tensor) -> bool:
+    """Whether the tensor-core route's TMA reads ``t`` in place: a unit
+    last stride and the other strides in whole 16-byte units."""
+    return t.stride(-1) == 1 and all(st > 0 and st % 8 == 0
+                                     for st in t.stride()[:3])
 
 
 # -- plain versions ------------------------------------------------------------
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """Plain version of :func:`flash_attention`: the same function in f32,
-    q cast and scaled before the dot as the kernel does it, the causal mask
+    q cast and scaled before the dot as the reference does it, the causal mask
     at -1e30, the unnormalized probabilities summed and divided at the end
     (``acc / max(l, 1e-30)``)."""
     b, hq, s, d = q.shape

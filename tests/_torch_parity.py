@@ -214,3 +214,45 @@ def emulate_segment_kernel(msg, dst, layout, row, combine, init):
             acc = merge(acc, part[heads[k]])
         out[v] = acc
     return out
+
+
+def emulate_flash_tc(q, k, v, causal, rows=128, keys=128):
+    """Kernel 4's bf16 tensor-core route re-enacted in torch on the CPU, with
+    its roundings at the places csrc/flash_attention.cu has them: per
+    (128-row q tile, 128-key tile) pair up to the diagonal, the products of
+    the bf16 q and k summed in f32 and scaled after the product (folded with
+    log2(e) into exp2, one rounding of the exponent as the kernel's fmaf);
+    the -1e30 mask on the diagonal tile; the running max and p in f32, l
+    summed from the f32 p; P rounded to bf16 before P v, summed in f32; the
+    output acc / max(l, 1e-30) rounded once to bf16. The CUDA kernel cannot
+    run on the CPU, so this shows that its roundings stay inside the bf16
+    bar. q: (B, Hq, S, D) bf16; k, v: (B, Hkv, S, D)."""
+    b, hq, s, d = q.shape
+    g = hq // k.shape[1]
+    c = np.float32(1.0 / d ** 0.5) * np.float32(1.4426950408889634)
+    qf = q.float().reshape(b, k.shape[1], g, s, d)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    out = torch.empty(qf.shape, dtype=torch.float32)
+    for qi in range(s // rows):
+        qt = qf[..., qi * rows:(qi + 1) * rows, :]
+        m = torch.full(qt.shape[:-1] + (1,), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qt)
+        last = qi * rows // keys if causal else s // keys - 1
+        for ki in range(last + 1):
+            sl = slice(ki * keys, (ki + 1) * keys)
+            sc = qt @ kf[..., sl, :].transpose(-1, -2)
+            if causal and ki == last:
+                qpos = qi * rows + torch.arange(rows)[:, None]
+                kpos = ki * keys + torch.arange(keys)[None]
+                sc = sc.masked_fill(kpos > qpos, -1e30)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            alpha = torch.exp2((m - m_new) * c)
+            p = torch.exp2((sc.double() * float(c)
+                            - (m_new * c).double()).float())
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p.bfloat16().float() @ vf[..., sl, :]
+            m = m_new
+        out[..., qi * rows:(qi + 1) * rows, :] = acc / torch.clamp_min(l,
+                                                                       1e-30)
+    return out.reshape(b, hq, s, d).to(q.dtype)

@@ -8,6 +8,11 @@ same inputs (numpy draws from a seed, handed to both packages).
   ``repro.kernels.ref.attention``, at that test's shapes plus GQA groups 5
   and 8, causal and full: f32 at 2e-5, bf16 at 2e-2 (the reference test's
   tolerances). The port's oracle ``attention`` is held to the same.
+* The roundings of kernel 4's bf16 tensor-core route
+  (``_torch_parity.emulate_flash_tc``: bf16 products summed in f32, the
+  scale after the product, P rounded to bf16 for P v) against the same two
+  reference functions, at bf16 2e-2, D = 64 and 128, GQA groups 4 and 5,
+  causal and full.
 * ``full_attention``, ``chunked_attention`` (S = 2048, as
   ``test_chunked_attention_matches_full``), ``decode_attention`` and
   ``update_cache`` against ``repro.models.attention``, f32 at 2e-5.
@@ -20,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_parity import emulate_flash_tc
 from _torch_parity import one_torch_thread  # noqa: F401
 
 from repro.kernels import ops as jops
@@ -70,6 +76,35 @@ def test_flash_attention_matches_reference(b, hq, hkv, s, d, causal, dtype):
     np.testing.assert_allclose(
         _np(FA.attention(tq, tk, tv, causal=causal)), oracle, rtol=tol,
         atol=tol)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [(1, 8, 2, 256, 64),
+                                           (1, 10, 2, 384, 64),
+                                           (1, 4, 1, 256, 128),
+                                           (1, 5, 1, 384, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_roundings_match_reference(b, hq, hkv, s, d, causal):
+    rng = np.random.default_rng(hq * 100 + s + d)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(rng.normal(size=(b, h, s, d)), "bfloat16")
+        for h in (hq, hkv, hkv))
+    got = emulate_flash_tc(tq, tk, tv, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hq, s, d)
+    pallas = _np(jops.flash_attention(jq, jk, jv, causal=causal))
+    oracle = _np(jref.attention(jq, jk, jv, causal=causal))
+    np.testing.assert_allclose(_np(got), pallas, rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(_np(got), oracle, rtol=2e-2, atol=2e-2)
+
+
+def test_tensor_core_route_takes_the_models_views_in_place():
+    """The bf16 route's TMA reads a tensor through its strides when the last
+    one is 1 and the others are whole 16-byte units: the model's transposed
+    (B, S, H, D) projections pass; other layouts are made contiguous."""
+    x = torch.zeros(2, 256, 10, 64, dtype=torch.bfloat16)
+    assert FA._strides_ok(x.transpose(1, 2))
+    assert FA._strides_ok(x.transpose(1, 2).contiguous())
+    assert not FA._strides_ok(x.transpose(1, 3))  # D not the unit stride
+    assert not FA._strides_ok(torch.zeros(2, 10, 256, 68)[..., 2:66])
 
 
 def test_flash_attention_needs_a_multiple_of_128():

@@ -349,13 +349,14 @@ def test_distributed_on_card_matches_cpu(card, prog):
 
 @pytest.mark.parametrize("arch", ["llama3p2_1b", "yi_6b", "qwen3_14b",
                                   "mistral_nemo_12b"])
-@pytest.mark.parametrize("s", [128, 512])
+@pytest.mark.parametrize("s", [128, 512, 2048])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_plain(card, arch, s, causal, dtype):
     """Kernel 4 against its plain version on the card, on the same inputs,
-    at the archs' head shapes: f32 at 2e-5 (the plain version's matmuls
-    in full f32, no TF32), bf16 at 2e-2."""
+    at the archs' head shapes: f32 (the CUDA-core route) at 2e-5, the plain
+    version's matmuls in full f32, no TF32; bf16 (the tensor-core route) at
+    2e-2."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as FA
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -376,8 +377,10 @@ def test_flash_attention_matches_plain(card, arch, s, causal, dtype):
 
 
 def test_flash_attention_takes_views_and_refuses_other_head_dims(card):
-    """The wrapper makes its inputs contiguous (the model passes
-    transposed views); a head dim the kernel lacks raises."""
+    """The wrapper takes the model's transposed views: the f32 route makes
+    them contiguous (its CUDA-core kernel reads contiguous tensors), the
+    bf16 route reads them in place (test_flash_attention_reads_strided_bf16);
+    a head dim the kernel lacks raises."""
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(2, 256, h, 64, generator=gen, device="cuda")
@@ -390,6 +393,27 @@ def test_flash_attention_takes_views_and_refuses_other_head_dims(card):
     q = torch.zeros(1, 2, 128, 32, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
         FA.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_reads_strided_bf16(card, d, causal):
+    """The tensor-core route reads q, k and v through their strides: the
+    model's (B, S, H, D) projections, transposed to (B, H, S, D) views,
+    give the contiguous call's output bitwise, and nothing is copied."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device="cuda").manual_seed(d + causal)
+    q, k, v = (torch.randn(2, 384, h, d, generator=gen, device="cuda").to(
+        torch.bfloat16) for h in (10, 2, 2))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    assert all(FA._strides_ok(t) and not t.is_contiguous() for t in views)
+    got = FA.flash_attention(*views, causal=causal)
+    want = FA.flash_attention(*(t.contiguous() for t in views), causal=causal)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and torch.equal(got, want)
+    plain = FA.flash_attention_ref(*views, causal=causal)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 @pytest.mark.parametrize("arch", ["llama3p2_1b", "qwen3_14b"])
