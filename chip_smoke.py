@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --segment-repeats N  # phase 6a's times, N times
 
 Phases (any failed check exits non-zero; nothing is caught and passed over):
 
@@ -101,13 +102,23 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    take ~99 GB of padding).
    a. Kernels 2 and 3 (segmented min/max and sum) called as the block
       processor calls them: on a row's valid prefix (its true edges),
-      through the group's head lists of those prefixes. On the hot group's
-      hub row and 16 seeded random rows of each storage group of the
-      PageRank graph, with the PageRank (sum), SSSP (min) and CC (max)
-      arithmetic on mid-run states: bitwise against the plain version on
-      CPU copies. Then the times of one call on the hub row and of one
-      pass over every cold row (kernel, plain version on the card, for the
-      cold pass the sum's alone, library yardstick) beside their bound.
+      through the group's layout of those prefixes (every row sorted by
+      destination: short rows one launch, the hub row the long path). The
+      rows' runs per destination and paths first, from the layouts. On the
+      hot group's hub row and 16 seeded random rows of each storage group
+      of the PageRank graph, with the PageRank (sum), SSSP (min) and CC
+      (max) arithmetic on mid-run states: bit for bit against the plain
+      version on CPU copies; then a synthetic unsorted row of 2^20 slots
+      (many short runs: the long path) the same way. Then the times of one
+      call on the hub row and of one pass over every cold row (kernel by
+      CUDA events, the cold pass as the median of 7 passes timed one by
+      one, with their least and greatest, and beside it the mean of 3
+      passes back to back; plain version on the card, for the cold pass
+      the sum's alone; library yardstick, timed as the kernel) beside both
+      bounds (a sorted row's bytes: msg, the destination offsets and the
+      output; and 8 B per slot with dst read), and for the cold pass the
+      host enqueue time of its calls, the wrappers' own Python, and the
+      device time by kernel (torch.profiler; for the hub row too).
    b. Runs through DistributedEngine.run() on an NCCL process group of one
       rank on cuda:0 (FileStore): PageRank on phase 3's graph (width 128,
       T2_PAGERANK), within rtol=1e-4, atol=2e-3/n of phase 3's baseline;
@@ -185,6 +196,7 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -223,6 +235,8 @@ DIST_BLOCK = 4096  # the distributed engine's block (launch/dryrun.py)
 DIST_N = 1 << 20  # phase 6b's SSSP graph
 DIST_CC_N = 1 << 18  # phase 6b's CC graph (symmetrized: twice the edges)
 DIST_ROWS = 16  # phase 6a's seeded rows per storage group
+SEG_UNSORTED_E = 1 << 20  # phase 6a's synthetic unsorted row
+COLD_PASSES = 7  # phase 6a: cold passes timed, kernel and library each
 SEED = 0
 DEV = "cuda"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM data sheet, dense bf16
@@ -276,6 +290,26 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_passes(fn, passes: int) -> list:
+    """Milliseconds of ``fn`` on the card in each of ``passes`` runs, each
+    timed alone by CUDA events from an idle card, after one warm-up run: a
+    loop of host-bound calls is timed by the host, whose stalls (a garbage
+    collection, another tenant) land in single runs."""
+    import torch
+    fn()
+    times = []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
 
 
 def mid_run_state(name, n_pad, rng):
@@ -888,8 +922,8 @@ SEGMENT_PROGRAMS = ("sum", "pagerank"), ("min", "sssp"), ("max", "cc")
 
 
 def segment_layouts(eng):
-    """The head lists of every storage group of ``eng``, built as
-    make_block_processor builds them: over each row's valid prefix."""
+    """The kernels' layout of every storage group of ``eng``, built as
+    make_block_processor builds it: over each row's valid prefix."""
     from repro_torch.kernels import segment as ks
     c = eng.plan.block_size
     return {k: ks.segment_layout(st.dst_local, c, st.edges)
@@ -909,9 +943,9 @@ def segment_check(label, eng, layouts, ops, rng):
     """Phase 6a's check: each combine of ``ops`` ((combine, program name)
     pairs) on the hub row and DIST_ROWS seeded random rows of each storage
     group of ``eng``, called as the block processor calls it (the row's
-    valid prefix through the group's prefix head lists), on a mid-run
-    state, against the plain version on CPU copies: bitwise. Returns the
-    largest absolute difference by combine."""
+    valid prefix through the group's layout of those prefixes), on a
+    mid-run state, against the plain version on CPU copies: bit for bit.
+    Returns the largest absolute difference by combine."""
     import numpy as np
     import torch
     from repro_torch.core import algorithms as A
@@ -926,6 +960,9 @@ def segment_check(label, eng, layouts, ops, rng):
              "cold": sorted(rng.choice(cold.num_blocks,
                                        min(DIST_ROWS, cold.num_blocks),
                                        replace=False))}
+    paths = {key: {name: int((lay.path == getattr(ks, name)).sum())
+                   for name in ("SHORT", "LONG")}
+             for key, lay in layouts.items()}
     errs = {}
     for op, name in ops:
         prog = A.REGISTRY[name]()
@@ -945,7 +982,7 @@ def segment_check(label, eng, layouts, ops, rng):
                              row=r).cpu()
                 want = plain(m.cpu(), d.cpu(), c, *extra)
                 errs[op] = max(errs[op], float((got - want).abs().max()))
-                if not torch.equal(got, want):
+                if not same_bits(got, want):
                     fail(f"6a {label} {op} {key} row {r}: kernel not "
                          "bitwise plain")
                 checked += e
@@ -953,16 +990,153 @@ def segment_check(label, eng, layouts, ops, rng):
             f"storage): kernel vs plain (cpu) bitwise on hub row {hub} "
             f"({int(hot.edges[hub])} edges) + {len(picks['hot']) - 1} hot "
             f"and {len(picks['cold'])} cold rows, each row's valid prefix "
-            f"through the group's prefix head lists ({checked} slots)")
+            f"through the group's layout ({checked} slots; rows by path "
+            f"{paths})")
     return errs
+
+
+def same_bits(a, b) -> bool:
+    """Equal f32 bit patterns (-0.0 is not +0.0)."""
+    import torch
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def segment_unsorted_check(c, rng):
+    """Phase 6a's check of the kernels on a row not sorted by destination:
+    a synthetic row of SEG_UNSORTED_E slots into ``c`` destinations, sorted
+    for its first third, then unsorted, then a padded tail of dst 0 and
+    identity messages, through a one-row layout, against the plain version
+    on CPU copies, bit for bit, for each combine. Returns the largest
+    absolute difference by combine."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import segment as ks
+    e = SEG_UNSORTED_E
+    d = rng.integers(0, c, e).astype(np.int32)
+    d[:e // 3] = np.sort(d[:e // 3])
+    d[e - e // 8:] = 0
+    dst = torch.from_numpy(d).to(DEV)
+    layout = ks.segment_layout(dst, c)
+    errs = {}
+    for op, ident in (("sum", 0.0), ("min", 1e18), ("max", -1e18)):
+        msg = rng.uniform(0.0, 30.0, e).astype(np.float32)
+        msg[e - e // 8:] = ident
+        m = torch.from_numpy(msg).to(DEV)
+        extra = () if op == "sum" else (ident,)
+        got = getattr(ks, f"edge_block_{op}")(m, dst, c, *extra,
+                                              layout=layout).cpu()
+        want = getattr(ks, f"edge_block_{op}_ref")(m.cpu(), dst.cpu(), c,
+                                                   *extra)
+        errs[op] = float((got - want).abs().max())
+        if not same_bits(got, want):
+            fail(f"6a: edge_block_{op} not bitwise plain on the synthetic "
+                 "unsorted row")
+    path = "long" if layout.path[0] == ks.LONG else "short"
+    log(f"[kernel] 6a edge_block_sum/min/max on a synthetic unsorted row "
+        f"({e} slots, C={c}, sorted for a third, a padded tail of an "
+        f"eighth; {int(layout.npieces[0])} runs, the {path} path): kernel "
+        f"vs plain (cpu) bitwise")
+    return errs
+
+
+def segment_row_stats(eng, layouts):
+    """Phase 6a's look at the rows the kernels get, from the layouts: how
+    many rows are sorted by destination over their valid prefix, the runs
+    per destination of each group (on a sorted row, its slot range cut at
+    the multiples of 512), each row's path, and how many rows have a
+    destination of more than t runs at several thresholds."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import segment as ks
+    for key, st in eng._stores.items():
+        lay = layouts[key]
+        runs = np.diff(lay.lptr.cpu().numpy(), axis=1)
+        top = runs.max(axis=1)
+        sorted_ = int(torch.stack([
+            (st.dst_local[r, 1:e] >= st.dst_local[r, :max(e - 1, 0)]).all()
+            for r, e in enumerate(int(x) for x in st.edges)]).sum())
+        over = {t: int((top > t).sum()) for t in (1, 2, 4, 8, 16, 32)}
+        log(f"[kernel] 6a {key} group: {st.num_blocks} rows, {sorted_} "
+            f"sorted by destination over their valid prefix, "
+            f"{int((lay.path == ks.LONG).sum())} on the long path; runs per "
+            f"destination: total {int(runs.sum())}, largest per row max "
+            f"{int(top.max())} median {float(np.median(top))}; rows with a "
+            f"destination of more than t runs {over}; destinations of more "
+            f"than t runs "
+            f"{ {t: int((runs > t).sum()) for t in (1, 2, 4, 8, 16)} }")
+
+
+def profile_kernels(fn) -> dict:
+    """Device microseconds and launches by kernel name over one call of
+    ``fn``, by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Mean host milliseconds to enqueue ``fn`` (no synchronize inside),
+    each run started on an idle card, after one warm-up run."""
+    import torch
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / reps * 1e3
+
+
+class _NoLaunch:
+    """A stand-in for a kernel library whose every entry point returns 0
+    and launches nothing: times a wrapper's own Python."""
+    _typed = True
+
+    def __getattr__(self, name):
+        return lambda *args: 0
+
+
+def wrapper_python_ms(fn, reps: int = 3) -> float:
+    """Mean host milliseconds of ``fn`` with the segment kernels' library
+    stubbed out: the wrappers' checks and argument handling alone."""
+    from repro_torch.kernels import segment as ks
+    real = ks._lib
+    ks._lib = lambda: _NoLaunch()
+    try:
+        return host_ms(fn, reps)
+    finally:
+        ks._lib = real
+
+
+def describe_profile(prof: dict) -> str:
+    return "; ".join(f"{k[:60]} {us:.1f} us {n}x"
+                     for k, (us, n) in sorted(prof.items(),
+                                              key=lambda kv: -kv[1][0]))
 
 
 def segment_times(eng, layouts, rng):
     """Phase 6a's times on the PageRank graph's storage: each combine once
     on the hub row and once over every cold row (each row's valid prefix,
-    as the path calls it): kernel, plain version on the card (for the cold
-    pass the sum's alone, whose order it defines: ~10 s), library yardstick
-    and bound. Returns (hub times, cold times) by combine."""
+    as the path calls it): kernel (CUDA events; for the cold pass, as for
+    its library call, the median of COLD_PASSES passes timed one by one,
+    their least and greatest, and the mean of 3 passes back to back, the
+    statistic of the earlier runs), plain version on
+    the card (for the cold pass the sum's alone, whose order it defines:
+    ~10 s), library yardstick and both bounds: the bytes a call on a
+    sorted row needs (msg, the destination offsets, the output) and those
+    of the function with dst read (8 B per slot). For the cold pass also
+    the host enqueue time of its calls, the wrappers' own Python, and the
+    device time by kernel (torch.profiler), and for the hub row the
+    latter. Returns (hub times, cold times) by combine."""
     import numpy as np
     import torch
     from repro_torch.core import algorithms as A
@@ -973,6 +1147,13 @@ def segment_times(eng, layouts, rng):
     hub = int(np.argmax(hot.edges))
     cold_e = [int(e) for e in cold.edges]
     hub_t, cold_t = {}, {}
+
+    def bounds(slots, rows):
+        return dict(
+            bound_ms=(slots * 4 + rows * ((c + 1) * 4 + c * 4))
+            / HBM_BYTES_PER_S * 1e3,
+            bound_dst_ms=(slots * 8 + rows * c * 4) / HBM_BYTES_PER_S * 1e3)
+
     for op, name in SEGMENT_PROGRAMS:
         prog = A.REGISTRY[name]()
         kernel = getattr(ks, f"edge_block_{op}")
@@ -993,29 +1174,44 @@ def segment_times(eng, layouts, rng):
         m = segment_msg(prog, hot, hub, values, aux)
         d = hot.dst_local[hub, :e]
         dl = d.long()
+
+        def hub_call():
+            return kernel(m, d, c, *extra, layout=layouts["hot"], row=hub)
+
         hub_t[op] = dict(
-            ms=cuda_ms(lambda: kernel(m, d, c, *extra, layout=layouts["hot"],
-                                      row=hub), 20),
+            ms=cuda_ms(hub_call, 20),
             plain_ms=cuda_ms(lambda: plain(m, d, c, *extra), 1,
                              warmup=False),
             library_ms=cuda_ms(lambda: library(m, dl), 20),
-            bound_ms=(e * 8 + c * 4) / HBM_BYTES_PER_S * 1e3)
+            device=profile_kernels(hub_call), **bounds(e, 1))
         del m, d, dl
         ms = [segment_msg(prog, cold, r, values, aux)
               for r in range(cold.num_blocks)]
         ds = [cold.dst_local[r, :e] for r, e in enumerate(cold_e)]
         dls = [d.long() for d in ds]
+
+        def cold_pass():
+            for r, (m, d) in enumerate(zip(ms, ds)):
+                kernel(m, d, c, *extra, layout=layouts["cold"], row=r)
+
+        def library_pass():
+            for m, dl in zip(ms, dls):
+                library(m, dl)
+
+        passes = cuda_ms_passes(cold_pass, COLD_PASSES)
+        library_passes = cuda_ms_passes(library_pass, COLD_PASSES)
         cold_t[op] = dict(
-            ms=cuda_ms(lambda: [kernel(m, d, c, *extra,
-                                       layout=layouts["cold"], row=r)
-                                for r, (m, d) in enumerate(zip(ms, ds))], 3),
+            ms=float(np.median(passes)), passes=passes,
+            mean3_ms=cuda_ms(cold_pass, 3),
             plain_ms=cuda_ms(lambda: [plain(m, d, c, *extra)
                                       for m, d in zip(ms, ds)], 1,
                              warmup=False) if op == "sum" else None,
-            library_ms=cuda_ms(lambda: [library(m, dl)
-                                        for m, dl in zip(ms, dls)], 3),
-            bound_ms=(sum(cold_e) * 8 + cold.num_blocks * c * 4)
-            / HBM_BYTES_PER_S * 1e3)
+            library_ms=float(np.median(library_passes)),
+            library_passes=library_passes,
+            library_mean3_ms=cuda_ms(library_pass, 3),
+            host_ms=host_ms(cold_pass), python_ms=wrapper_python_ms(cold_pass),
+            device=profile_kernels(cold_pass),
+            **bounds(sum(cold_e), cold.num_blocks))
         del ms, ds, dls
         for label, t, slots in (("hub row", hub_t[op], e),
                                 (f"{cold.num_blocks} cold rows", cold_t[op],
@@ -1024,9 +1220,28 @@ def segment_times(eng, layouts, rng):
                         else f"{t['plain_ms']!r} ms")
             log(f"[kernel] 6a edge_block_{op} on the {label} ({slots} "
                 f"edges, C={c}): kernel {t['ms']!r} ms, plain {plain_ms}, "
-                f"library {t['library_ms']!r} ms, "
-                f"bound {t['bound_ms']!r} ms (8 B per edge + 4 B per "
-                f"destination at {HBM_BYTES_PER_S:.3g} B/s)")
+                f"library {t['library_ms']!r} ms, bound {t['bound_ms']!r} "
+                f"ms (4 B per edge + 8 B per destination, dst not read on "
+                f"a sorted row) and {t['bound_dst_ms']!r} ms (8 B per edge "
+                f"+ 4 B per destination), at {HBM_BYTES_PER_S:.3g} B/s")
+            if "host_ms" in t:
+                log(f"[kernel] 6a edge_block_{op} on the {label}: "
+                    f"{COLD_PASSES} passes timed one by one, kernel "
+                    f"{t['passes']!r} ms (median {t['ms']!r}, least "
+                    f"{min(t['passes'])!r}, greatest {max(t['passes'])!r}), "
+                    f"library {t['library_passes']!r} ms (median "
+                    f"{t['library_ms']!r}, least "
+                    f"{min(t['library_passes'])!r}, greatest "
+                    f"{max(t['library_passes'])!r}); mean of 3 back to "
+                    f"back: kernel {t['mean3_ms']!r} ms, library "
+                    f"{t['library_mean3_ms']!r} ms")
+                log(f"[kernel] 6a edge_block_{op} on the {label}: host "
+                    f"enqueue {t['host_ms']!r} ms for {len(cold_e)} calls "
+                    f"(no synchronize inside), of which the wrappers' own "
+                    f"Python {t['python_ms']!r} ms (library stubbed)")
+            log(f"[kernel] 6a edge_block_{op} on the {label}: device time "
+                f"by kernel (torch.profiler, one call or pass): "
+                f"{describe_profile(t['device'])}")
     return hub_t, cold_t
 
 
@@ -1129,14 +1344,28 @@ def stream_phase(label, g, program, cfg, batches, exact):
     return masked, se
 
 
+@contextlib.contextmanager
+def group_of_one():
+    """A process group of one rank (NCCL on the card) over a FileStore in a
+    temporary directory, destroyed on the way out."""
+    import tempfile
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if DEV == "cuda" else "gloo", rank=0, world_size=1,
+            store=dist.FileStore(str(Path(tmp) / "store"), 1))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
 def distributed_phase(g, pr_base, rng, t_start):
     """Phase 6 on a process group of one rank (NCCL on the card) over a
     FileStore: 6a on the PageRank engine's storage, then 6b's runs, each
     engine's storage checked by 6a's check before its run. Returns the
     runs' combine launches, 6a's errors, hub-row and cold-pass times."""
-    import tempfile
     import torch
-    import torch.distributed as dist
     from repro_torch.core import algorithms as A
     from repro_torch.core import graph as G
     from repro_torch.core.baseline import BaselineEngine
@@ -1154,54 +1383,96 @@ def distributed_phase(g, pr_base, rng, t_start):
         torch.cuda.synchronize()
         return eng, time.perf_counter() - t0
 
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group(
-            "nccl" if DEV == "cuda" else "gloo", rank=0, world_size=1,
-            store=dist.FileStore(str(Path(tmp) / "store"), 1))
-        try:
-            t0 = time.perf_counter()
-            eng, build_s = build(g, A.pagerank(), T2_PAGERANK)
-            hot, cold = eng._stores["hot"], eng._stores["cold"]
-            log(f"[dist] pagerank engine on n={g.n} built in {build_s:.1f} "
-                f"s: hot group {hot.num_blocks} x {hot.capacity} slots "
-                f"({int(hot.edges.sum())} true edges, {int(hot.edges.max())} "
-                f"in the hub row), cold group {cold.num_blocks} x "
-                f"{cold.capacity} ({int(cold.edges.sum())} true edges), "
-                f"padded storage {eng.storage_bytes()} B")
-            layouts = segment_layouts(eng)
-            errs = segment_check("pagerank graph", eng, layouts,
-                                 SEGMENT_PROGRAMS, rng)
-            hub_t, cold_t = segment_times(eng, layouts, rng)
-            del layouts, hot, cold
-            log(f"[kernel] 6a done in {time.perf_counter() - t0:.1f} s")
-            log(f"[time] phase 6b starts at "
-                f"{time.perf_counter() - t_start:.1f} s")
-            launches["sum"] = dist_run("pagerank distributed", eng, build_s,
-                                       "sum", pr_base, exact=False)
+    with group_of_one():
+        t0 = time.perf_counter()
+        eng, build_s = build(g, A.pagerank(), T2_PAGERANK)
+        hot, cold = eng._stores["hot"], eng._stores["cold"]
+        log(f"[dist] pagerank engine on n={g.n} built in {build_s:.1f} "
+            f"s: hot group {hot.num_blocks} x {hot.capacity} slots "
+            f"({int(hot.edges.sum())} true edges, {int(hot.edges.max())} "
+            f"in the hub row), cold group {cold.num_blocks} x "
+            f"{cold.capacity} ({int(cold.edges.sum())} true edges), "
+            f"padded storage {eng.storage_bytes()} B")
+        layouts = segment_layouts(eng)
+        segment_row_stats(eng, layouts)
+        errs = segment_check("pagerank graph", eng, layouts,
+                             SEGMENT_PROGRAMS, rng)
+        for op, err in segment_unsorted_check(DIST_BLOCK, rng).items():
+            errs[op] = max(errs[op], err)
+        hub_t, cold_t = segment_times(eng, layouts, rng)
+        del layouts, hot, cold
+        log(f"[kernel] 6a done in {time.perf_counter() - t0:.1f} s")
+        log(f"[time] phase 6b starts at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        launches["sum"] = dist_run("pagerank distributed", eng, build_s,
+                                   "sum", pr_base, exact=False)
+        del eng
+        for op, prog, n in (("min", A.sssp(0), DIST_N),
+                            ("max", A.cc(), DIST_CC_N)):
+            gd = G.powerlaw_graph(n, avg_deg=AVG_DEG, seed=2,
+                                  weighted=True)
+            cfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=T2)
+            base = BaselineEngine(gd, prog, cfg, frontier=False,
+                                  device=DEV).run(max_iterations=BASE_CAP)
+            if not base.metrics.converged:
+                fail(f"{prog.name} baseline on n={gd.n} did not converge")
+            eng, build_s = build(gd, prog, T2)
+            label = f"{prog.name} graph (n={gd.n})"
+            got = segment_check(label, eng, segment_layouts(eng),
+                                [(op, prog.name)], rng)
+            errs[op] = max(errs[op], got[op])
+            launches[op] = dist_run(
+                f"{prog.name} distributed on powerlaw_graph(n={gd.n})",
+                eng, build_s, op, base.values, exact=True)
             del eng
-            for op, prog, n in (("min", A.sssp(0), DIST_N),
-                                ("max", A.cc(), DIST_CC_N)):
-                gd = G.powerlaw_graph(n, avg_deg=AVG_DEG, seed=2,
-                                      weighted=True)
-                cfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=T2)
-                base = BaselineEngine(gd, prog, cfg, frontier=False,
-                                      device=DEV).run(max_iterations=BASE_CAP)
-                if not base.metrics.converged:
-                    fail(f"{prog.name} baseline on n={gd.n} did not converge")
-                eng, build_s = build(gd, prog, T2)
-                label = f"{prog.name} graph (n={gd.n})"
-                got = segment_check(label, eng, segment_layouts(eng),
-                                    [(op, prog.name)], rng)
-                errs[op] = max(errs[op], got[op])
-                launches[op] = dist_run(
-                    f"{prog.name} distributed on powerlaw_graph(n={gd.n})",
-                    eng, build_s, op, base.values, exact=True)
-                del eng
-        finally:
-            dist.destroy_process_group()
     log("[check] distributed runs: pagerank within rtol=1e-4, atol=2e-3/n of "
         "the baseline; sssp and cc bitwise equal to the baseline")
     return launches, errs, hub_t, cold_t
+
+
+def segment_repeats(repeats: int) -> int:
+    """``--segment-repeats N``: phase 6a alone, its times taken ``repeats``
+    times in this one process. It builds the segment kernels, phase 6's
+    PageRank engine on phase 3's graph, runs 6a's checks once and its
+    times ``repeats`` times, and prints each repetition's cold-pass and
+    hub-row readings as one JSON line. No result line: the smoke run is
+    the one without arguments."""
+    import numpy as np
+    import torch
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import graph as G
+    from repro_torch.core.distributed import DistributedEngine
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    log(f"[device] {card_line()}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    _build.build("segment_combine")
+    rng = np.random.default_rng(SEED)
+    g = G.core_periphery_graph(N, avg_deg=AVG_DEG, seed=1, chords=1)
+    torch.cuda.set_device(0)
+    readings = []
+    with group_of_one():
+        eng = DistributedEngine(g, A.pagerank(), EngineConfig(
+            t2=T2_PAGERANK, block_size=DIST_BLOCK, width=WIDTH,
+            max_iterations=SA_CAP), device=DEV)
+        layouts = segment_layouts(eng)
+        segment_row_stats(eng, layouts)
+        segment_check("pagerank graph", eng, layouts, SEGMENT_PROGRAMS, rng)
+        segment_unsorted_check(DIST_BLOCK, rng)
+        for i in range(repeats):
+            log(f"[kernel] 6a times, repetition {i + 1} of {repeats}")
+            hub_t, cold_t = segment_times(eng, layouts, rng)
+            readings.append({op: dict(
+                hub_ms=hub_t[op]["ms"], hub_library_ms=hub_t[op]["library_ms"],
+                **{k: cold_t[op][k] for k in (
+                    "passes", "library_passes", "mean3_ms",
+                    "library_mean3_ms", "host_ms", "python_ms")})
+                for op in cold_t})
+        del eng, layouts
+    log(f"[done] in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"segment_repeats": readings}))
+    return 0
 
 
 def attention_phase():
@@ -1704,6 +1975,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:2] == ["--segment-repeats"]:
+        return segment_repeats(int(sys.argv[2]))
     import numpy as np
     from repro_torch.core import algorithms as A
     from repro_torch.core import graph as G
@@ -2085,7 +2358,12 @@ def main() -> int:
               launches=dist_launches[op], max_abs_err=seg_errs[op],
               ms=hub_t[op]["ms"], plain_ms=hub_t[op]["plain_ms"],
               bound_ms=hub_t[op]["bound_ms"], bound_by="bytes",
-              library_ms=hub_t[op]["library_ms"])
+              library_ms=hub_t[op]["library_ms"],
+              bound_dst_ms=hub_t[op]["bound_dst_ms"],
+              cold_ms=cold_t[op]["ms"],
+              cold_library_ms=cold_t[op]["library_ms"],
+              cold_bound_ms=cold_t[op]["bound_ms"],
+              cold_bound_dst_ms=cold_t[op]["bound_dst_ms"])
          for op in ("sum", "min", "max")] + [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",

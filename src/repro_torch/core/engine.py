@@ -349,7 +349,7 @@ def _combine_local(program: VertexProgram, msg: torch.Tensor,
                    row: int = 0) -> torch.Tensor:
     """The segmented combine of one block row (kernels 3 and 2): the
     reference's ``_combine_local(use_pallas=True)``. ``layout``/``row``
-    name the storage group's head lists for ``dst_local``."""
+    name the storage group's kernel layout for ``dst_local``."""
     kw = dict(layout=layout, row=row)
     if program.combine == "sum":
         return kseg.edge_block_sum(msg, dst_local, block_size, **kw)
@@ -366,9 +366,9 @@ def make_block_processor(program: VertexProgram, store: EdgeStorage,
     on the device of ``aux`` (``PartitionPlan.group_storage``). The
     gather, ``edge_map``, the validity mask and ``apply`` are plain torch
     ops, as the reference computes them outside any kernel; the combine
-    goes through the segmented-combine kernels, with the group's head lists
-    built once here. ``gids`` (host) maps a row to its global block id, so
-    ``base`` is known on the host.
+    goes through the segmented-combine kernels, with the group's kernel
+    layout (``segment_layout``) built once here. ``gids`` (host) maps a
+    row to its global block id, so ``base`` is known on the host.
 
     * ``process_one(values, row) -> (base, new, psd, dmax)``: one pass,
       functional like the reference's;

@@ -182,37 +182,55 @@ def emulate_lane_kernel(program, n_total, ed, values, vconst, rows, ok, psd,
             dmax3[r, s] = delta[seg].amax(dim=0)
 
 
-def emulate_segment_kernel(msg, dst, layout, row, combine, init):
+def emulate_segment_kernel(msg, layout, row, combine, init):
     """Kernels 2/3 re-enacted in numpy the way csrc/segment_combine.cu runs
-    them on row ``row`` of ``layout``: launch 1 folds each run from its head
-    (a slot that starts its 512-slot tile or differs in dst from the slot
-    before) and stores the partial at the head's slot; launch 2 folds each
-    destination's partials from ``init`` through the layout's head list.
-    The CUDA kernel cannot run on the CPU, so this holds its order and the
-    head lists against the plain versions."""
+    them on row ``row`` of ``layout``, from its run table alone (dst is not
+    read): seg_tiles (short rows) takes each 512-slot tile's runs (from the
+    layout's first run of each tile), folds each one from the combine's
+    identity, and writes it at once where its destination has no other run
+    (init combined with it) or else into its partial; seg_pieces (long rows)
+    does the same a run per lane, each folded from its first message; the
+    empty destinations get ``init``; then each destination of several runs
+    folds its partials, in order, from ``init`` (the last block on a short
+    row, seg_chain on a long one). The CUDA kernel cannot run on the CPU,
+    so this holds its order and the layout's tables against the plain
+    versions."""
     from repro_torch.kernels import segment as ks
     merge = {"sum": lambda a, b: np.float32(a + b),
-             "min": lambda a, b: min(a, b),
-             "max": lambda a, b: max(a, b)}[combine]
-    m, d = msg.numpy(), dst.numpy()
-    part = np.zeros(m.size, np.float32)
-    for t0 in range(0, m.size, ks.TILE):  # launch 1: a warp per tile
-        end = min(t0 + ks.TILE, m.size)
-        for i in range(t0, end):
-            if i == t0 or d[i - 1] != d[i]:
-                acc, j = m[i], i + 1
-                while j < end and d[j] == d[i]:
-                    acc, j = merge(acc, m[j]), j + 1
-                part[i] = acc
-    c = layout.block_size
-    hptr = layout.hptr.numpy()[row * c:row * c + c + 1]
-    heads = layout.heads.numpy()
-    out = np.empty(c, np.float32)
-    for v in range(c):  # launch 2: a warp per destination, one chain
+             "min": lambda a, b: np.fmin(a, b),
+             "max": lambda a, b: np.fmax(a, b)}[combine]
+    ident = {"sum": np.float32(0.0), "min": np.float32(np.inf),
+             "max": np.float32(-np.inf)}[combine]
+    m, c = msg.numpy(), layout.block_size
+    lptr = layout.lptr[row].numpy()
+
+    def rows_of(table, counts):  # this row's entries of a row-after-row table
+        base = int(counts[:row].sum())
+        return table[base:base + int(counts[row])].numpy()
+
+    pstart = rows_of(layout.pstart, layout.npieces + 1)
+    ptarget = rows_of(layout.ptarget, layout.npieces)
+    tpiece = rows_of(layout.tpiece, layout.ntiles + 1)
+    out = np.full(c, np.nan, np.float32)
+    part = np.full(int(lptr[-1]), np.nan, np.float32)
+    long = layout.path[row] == ks.LONG
+    for t in range(int(layout.ntiles[row])):  # short: a warp per tile
+        for k in range(tpiece[t], tpiece[t + 1]):  # a lane per run
+            lo, hi = pstart[k], pstart[k + 1]
+            p = m[lo] if long else ident  # seg_pieces: from its first
+            for x in m[lo + long:hi]:
+                p = merge(p, x)
+            if ptarget[k] >= 0:
+                out[ptarget[k]] = merge(np.float32(init), p)
+            else:
+                part[~ptarget[k]] = p
+    for d in rows_of(layout.empty, layout.nempty):
+        out[d] = init
+    for d in rows_of(layout.chain, layout.nchain):
         acc = np.float32(init)
-        for k in range(hptr[v], hptr[v + 1]):
-            acc = merge(acc, part[heads[k]])
-        out[v] = acc
+        for p in part[lptr[d]:lptr[d + 1]]:
+            acc = merge(acc, p)
+        out[d] = acc
     return out
 
 

@@ -326,6 +326,68 @@ def test_segment_kernels_match_plain(card, combine):
         kernel(msg, dst[1], c, *ident)
 
 
+@pytest.mark.parametrize("combine", ["sum", "min", "max"])
+def test_segment_kernels_match_plain_sorted(card, combine):
+    """Kernels 2 and 3 on rows sorted by destination (the distributed
+    engine's rows) against their plain version on CPU copies, bit for bit
+    (the sign of zero included): a long row (a destination of ~41 pieces:
+    a lane per piece, then a warp per destination), short rows (a lane per
+    destination, one launch) with empty destinations and destinations of
+    -0.0 messages, prefixes of 1, 511, 512 and 513 slots, through a group
+    layout, a prefix layout and one-row layouts, on messages in a buffer
+    aligned to 16 bytes and in a view that is not; each call counts one
+    launch."""
+    from repro_torch.kernels import segment as ks
+    rng = np.random.default_rng(5)
+    c, e = 1024, 60000
+    rows = [np.sort(rng.integers(0, c, e)).astype(np.int32)
+            for _ in range(3)]
+    rows[0][7000:28000] = 300  # ~41 pieces into one destination
+    rows[0] = np.sort(rows[0])
+    rows[1] = np.sort(np.minimum(rows[1] // 3 * 3, c - 1))  # empty ones
+    dst = torch.from_numpy(np.stack(rows)).cuda()
+    ends = [e, 513, 512]
+    layout, prefix = ks.segment_layout(dst, c), ks.segment_layout(dst, c,
+                                                                   ends)
+    assert layout.path.tolist() == [ks.LONG, ks.SHORT, ks.SHORT]
+    assert prefix.path.tolist() == [ks.LONG, ks.SHORT, ks.SHORT]
+    ident = {"sum": (), "min": (1e18,), "max": (-1e18,)}[combine]
+    kernel = getattr(ks, f"edge_block_{combine}")
+    plain = getattr(ks, f"edge_block_{combine}_ref")
+
+    def same(got, want):
+        return torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+    n0, calls = kernel.launches, 0
+    for r in range(3):
+        buf = torch.from_numpy(rng.uniform(-1.0, 1.0, e + 1).astype(
+            np.float32)).cuda()
+        # every message of two destinations -0.0, in both views
+        for v in (rows[r][5], rows[r][-5]):
+            zero = torch.from_numpy(np.flatnonzero(rows[r] == v)).cuda()
+            buf[zero] = -0.0
+            buf[zero + 1] = -0.0
+        for msg in (buf[:e], buf[1:]):  # the second is not 16-B aligned
+            want = plain(msg.cpu(), dst[r].cpu(), c, *ident)
+            got = kernel(msg, dst[r], c, *ident, layout=layout, row=r)
+            one = dst[r].clone()
+            alone = kernel(msg, one, c, *ident,
+                           layout=ks.segment_layout(one, c))
+            for k in (ends[r], 1, 511):
+                lay = (prefix if k == ends[r] else
+                       ks.segment_layout(dst[r], c, [k]))
+                pre = kernel(msg[:k], dst[r, :k], c, *ident, layout=lay,
+                             row=r if k == ends[r] else 0)
+                want_pre = plain(msg[:k].cpu(), dst[r, :k].cpu(), c, *ident)
+                torch.cuda.synchronize()
+                assert same(pre, want_pre), (r, k)
+            torch.cuda.synchronize()
+            assert same(got, want) and same(alone, want), r
+            calls += 5
+    assert kernel.launches == n0 + calls
+
+
 @pytest.mark.parametrize("prog", ["pagerank", "sssp", "bfs", "cc"])
 def test_distributed_on_card_matches_cpu(card, prog):
     """The distributed engine (a world of one) on the card equals the same

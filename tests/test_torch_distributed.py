@@ -24,7 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import (emulate_segment_kernel, one_torch_thread,  # noqa: F401
+from _torch_parity import (emulate_segment_kernel, one_torch_thread,
                            reference_arrays)
 from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, PartitionSpec
@@ -159,9 +159,11 @@ def test_plain_sum_matches_pallas_within_roundoff(c):
 
 @pytest.mark.parametrize("combine", ["sum", "min", "max"])
 def test_kernel_order_emulated_from_head_lists(combine):
-    """The kernel's two launches, re-enacted from a group layout's head
-    lists, equal the plain version bitwise on every row, sums included; the
-    head lists hold every run head once."""
+    """The kernel, re-enacted from a group layout's run table (its head
+    list: each run's first slot, in slot order), equals the plain version
+    bit for bit on rows that are not sorted by destination (a sorted
+    prefix, an unsorted stretch and a padded tail of dst 0; fully
+    unsorted), sums included; the table lists every run head once."""
     c, rng = 256, np.random.default_rng(7)
     rows = []
     for r in range(3):
@@ -174,14 +176,173 @@ def test_kernel_order_emulated_from_head_lists(combine):
     init = 0.0 if combine == "sum" else IDENT[combine]
     for r, dst in enumerate(dst2):
         heads = np.flatnonzero(ks.run_heads(dst).numpy())
-        lo, hi = layout.hptr[r * c], layout.hptr[(r + 1) * c]
-        assert sorted(layout.heads[lo:hi].tolist()) == heads.tolist()
+        base = int((layout.npieces[:r] + 1).sum())
+        assert layout.pstart[base:base + heads.size + 1].tolist() == (
+            heads.tolist() + [dst.numel()])
         msg = torch.from_numpy(rng.uniform(0.0, 1.0, dst.numel())
                                .astype(np.float32))
         plain = getattr(ks, f"edge_block_{combine}_ref")(
             msg, dst, c, *(() if combine == "sum" else (init,)))
-        got = emulate_segment_kernel(msg, dst, layout, r, combine, init)
-        assert np.array_equal(got, plain.numpy()), r
+        got = emulate_segment_kernel(msg, layout, r, combine, init)
+        assert np.array_equal(_bits(got), _bits(plain.numpy())), r
+
+
+def _bits(x):
+    """The f32 bit patterns of ``x``: equal bits, not equal values (-0.0 is
+    not +0.0)."""
+    return np.asarray(x, dtype=np.float32).view(np.uint32)
+
+
+SORTED_CASES = ("long", "empty", "len1", "len511", "len512", "len513",
+                "len1300", "negzero")
+
+
+def _sorted_row(case, c, rng):
+    """A destination row sorted by destination, and its messages, for one
+    case of the kernel's sorted paths (c destinations)."""
+    e = {"long": 9000, "empty": 3000, "negzero": 2000}.get(case)
+    e = int(case[3:]) if e is None else e
+    dst = rng.integers(0, c, e)
+    if case == "long":  # ~12 pieces into one destination
+        dst[1000:7000] = c // 3
+    if case == "empty":  # only every 4th destination has slots
+        dst = dst // 4 * 4
+    dst = np.sort(dst).astype(np.int32)
+    msg = rng.uniform(-1.0, 1.0, e).astype(np.float32)
+    if case == "negzero":  # a destination of -0.0 messages, and a lone one
+        msg[dst == dst[700]] = -0.0
+        lone = np.flatnonzero(np.bincount(dst, minlength=c) == 1)
+        msg[np.isin(dst, lone[:1])] = -0.0
+    return torch.from_numpy(dst), torch.from_numpy(msg)
+
+
+@pytest.mark.parametrize("case", SORTED_CASES)
+@pytest.mark.parametrize("combine", ["sum", "min", "max"])
+def test_sorted_kernel_order_emulated(combine, case):
+    """The kernel's sorted paths, re-enacted from the layout's offsets and
+    piece table, equal the plain version bit for bit (the sign of zero
+    included): a destination of more than LONG_PIECES pieces (the long
+    path), empty destinations, rows of 1, 511, 512, 513 and 1300 slots,
+    pieces of -0.0 (the short path folds a piece from +0)."""
+    c, rng = 256, np.random.default_rng(SORTED_CASES.index(case))
+    dst, msg = _sorted_row(case, c, rng)
+    layout = ks.segment_layout(dst, c)
+    assert layout.path[0] == (ks.LONG if case == "long" else ks.SHORT)
+    init = 0.0 if combine == "sum" else IDENT[combine]
+    plain = getattr(ks, f"edge_block_{combine}_ref")(
+        msg, dst, c, *(() if combine == "sum" else (init,)))
+    got = emulate_segment_kernel(msg, layout, 0, combine, init)
+    assert np.array_equal(_bits(got), _bits(plain.numpy()))
+    if case == "negzero" and combine == "sum":
+        assert (_bits(plain.numpy()) == 0x80000000).sum() == 0  # no -0 out
+
+
+@pytest.mark.parametrize("name", sorted(STORAGE_GRAPHS))
+@pytest.mark.parametrize("combine", ["sum", "min", "max"])
+def test_sorted_kernel_order_on_group_storage(combine, name):
+    """Every row of a real group storage (``_build_storage``), over its
+    valid prefix as the block processor calls the kernel: sorted by
+    destination, and the kernel's order re-enacted from the layout equals
+    the plain version bit for bit."""
+    fn, kw = STORAGE_GRAPHS[name]
+    plan = TP.build_plan(getattr(TG, fn)(**kw), block_size=128)
+    rng = np.random.default_rng(11)
+    init = 0.0 if combine == "sum" else IDENT[combine]
+    for key in ("hot", "cold"):
+        st = plan.group_storage(key, "cpu")
+        layout = ks.segment_layout(st.dst_local, 128, st.edges)
+        for r, e in enumerate(int(x) for x in st.edges):
+            assert (np.diff(st.dst_local[r, :e].numpy()) >= 0).all(), key
+            msg = torch.from_numpy(rng.uniform(0.0, 30.0, e).astype(
+                np.float32))
+            plain = getattr(ks, f"edge_block_{combine}_ref")(
+                msg, st.dst_local[r, :e], 128,
+                *(() if combine == "sum" else (init,)))
+            got = emulate_segment_kernel(msg, layout, r, combine, init)
+            assert np.array_equal(_bits(got), _bits(plain.numpy())), (key, r)
+
+
+def _runs(row):
+    """A row's runs, independently of the port: (first slot, destination)
+    of each maximal stretch of equal dst inside a 512-slot tile."""
+    return [(i, int(x)) for i, x in enumerate(row)
+            if i % 512 == 0 or row[i - 1] != x]
+
+
+def test_segment_layout_paths_and_offsets():
+    """segment_layout's run table of each row, judged on the covered prefix
+    only, equals one built independently: on a row sorted by destination,
+    from the offsets of an np.searchsorted (each destination's range cut
+    at the multiples of 512); on any row, from a scan for run heads. Its
+    run offsets, start slots, targets, each tile's first run, empty and
+    chained destinations, and each row's path (long past LONG_PIECES runs
+    of a destination or CHAIN_MAX chained ones); the per-row launch
+    arguments point at the rows' entries."""
+    c, e, rng = 128, 5000, np.random.default_rng(2)
+    short = np.sort(rng.integers(0, c, e))
+    long_ = np.sort(np.concatenate([rng.integers(0, c, e - 3000),
+                                    np.full(3000, 77)]))
+    mixed = short.copy()
+    mixed[4000:] = rng.integers(0, c, e - 4000)  # sorted up to 4000 only
+    tail = short.copy()
+    tail[4500:] = 0  # a padded tail of dst 0
+    rows = np.stack([short, long_, mixed, mixed, tail, tail]).astype(np.int32)
+    lengths = [e, e, e, 4000, e, 4500]
+    layout = ks.segment_layout(torch.from_numpy(rows), c, lengths)
+    assert layout.path.tolist() == [ks.SHORT, ks.LONG, ks.LONG, ks.SHORT,
+                                    ks.SHORT, ks.SHORT]
+    bases = {f: 0 for f in ("pstart", "ptarget", "tpiece", "empty",
+                            "chain")}
+    for r, (row, k) in enumerate(zip(rows, lengths)):
+        assert layout.calls[r][:2] == (layout.dst[r].data_ptr(), k)
+        runs = _runs(row[:k])
+        if (np.diff(row[:k]) >= 0).all():  # sorted: the same from offsets
+            off = np.searchsorted(row[:k], np.arange(c + 1), side="left")
+            cut = [(x, d) for d in range(c)
+                   for x in ([off[d]] + list(range(
+                       (off[d] // 512 + 1) * 512, off[d + 1], 512))
+                       if off[d + 1] > off[d] else [])]
+            assert cut == runs, r
+        count = np.bincount([d for _, d in runs], minlength=c)
+        lptr = np.concatenate([[0], np.cumsum(count)])
+        assert np.array_equal(layout.lptr[r].numpy(), lptr), r
+        seen = np.zeros(c, np.int64)
+        ptarget = []
+        for _, d in runs:
+            ptarget.append(d if count[d] == 1
+                           else -1 - (int(lptr[d]) + int(seen[d])))
+            seen[d] += 1
+        pstart = [x for x, _ in runs]
+        want = {"pstart": np.array(pstart + [k]),
+                "ptarget": np.array(ptarget),
+                "tpiece": np.append(np.searchsorted(pstart,
+                                                    np.arange(0, k, 512)),
+                                    len(pstart)),
+                "empty": np.flatnonzero(count == 0),
+                "chain": np.flatnonzero(count > 1)}
+        for f, w in want.items():
+            got = getattr(layout, f)[bases[f]:bases[f] + len(w)].numpy()
+            assert np.array_equal(got, w), (r, f)
+            bases[f] += len(w)
+        assert (layout.npieces[r], layout.ntiles[r]) == (len(ptarget),
+                                                         -(-k // 512))
+        assert (layout.nempty[r], layout.nchain[r]) == (
+            len(want["empty"]), len(want["chain"]))
+        long = count.max() > ks.LONG_PIECES or (count > 1).sum() > ks.CHAIN_MAX
+        assert (layout.path[r] == ks.LONG) == long, r
+    for r in range(len(rows)):  # each row's launch arguments at its entries
+        a, before = layout.args[r], slice(0, r)
+        assert a.ptarget - layout.ptarget.data_ptr() == 4 * int(
+            layout.npieces[before].sum())
+        assert a.pstart - layout.pstart.data_ptr() == 4 * int(
+            (layout.npieces[before] + 1).sum())
+        assert a.path == layout.path[r] and a.e == lengths[r]
+    assert layout.part_len == int(layout.lptr[:, -1].max())
+    # many destinations of two runs make a row long too
+    wide = np.repeat(np.arange(2048), 200).astype(np.int32)
+    many = ks.segment_layout(torch.from_numpy(wide), 2048)
+    assert many.path[0] == ks.LONG and many.nchain[0] > ks.CHAIN_MAX
+    assert int(np.diff(many.lptr[0].numpy()).max()) <= ks.LONG_PIECES
 
 
 # -- the block processor ---------------------------------------------------------
