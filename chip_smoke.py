@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --segment-repeats N  # phase 6a's times, N times
+    python3 chip_smoke.py --sweep-profile  # kernels 1/1m's shapes alone
 
 Phases (any failed check exits non-zero; nothing is caught and passed over):
 
@@ -35,6 +36,15 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       1lm runs over S = 8 coverage with seeded (P, S, L) psd and two lanes
       done. A one-lane k_sssp sweep must equal kernel 1's sssp sweep
       bitwise.
+   e. Kernels 1 and 1m at the main path's shapes on both graphs, from a
+      generator of its own (SWEEP_SEED): the tiles' statistics (runs per
+      tile, the longest run per tile and the share of slots in runs longer
+      than 32, partials per destination; over all tiles and the hub
+      block's; for a 1/S-live mask the tiles needed), then kernel 1's time
+      and device time by kernel (torch.profiler) on a one-slot pass of the
+      hub block and on a cold slate of WIDTH blocks, and on the SSSP graph
+      the full cold sweeps of kernel 1 and of 1m all live and 1/S live
+      beside the library yardstick (no plain version).
    Then the times of one full cold sweep of every block of the PageRank
    graph (kernel, plain
    version on the card, and a library yardstick that the port never calls)
@@ -43,7 +53,7 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    mutated layout of 2c against the same engine's build-time layout
    (timed before the batch), and kernels 1l/1lm at L = 8 (k_sssp on the
    SSSP graph, 1lm with every sub-block live and about 1/S live). The
-   bound counts aux and vconst only for the programs that read them.
+   bound counts w, aux and vconst only for the programs that read them.
 3. The main path at n = 2^21 vertices, avg_deg 16 (~33.5M edges):
    PageRank on core_periphery_graph(seed=1, chords=1) and SSSP on a
    weighted powerlaw_graph, each through StructureAwareEngine.run() and
@@ -51,15 +61,19 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    (PageRank: scaled to 1/n, see T2_PAGERANK).
    SSSP fixpoints must be bitwise equal, PageRank must agree at rtol=1e-4,
    atol=2e-3/n, and the sweep kernel must have launched on the main path.
+   Then each SA engine runs WINDOW supersteps from the start WINDOWS times
+   by the host clock and WINDOWS times under torch.profiler: wall and
+   device busy time per superstep (median and spread), sweep calls per
+   superstep, and the device time by kernel.
 4. Streaming with hierarchical partitions: a StreamingEngine (S = 8,
    StreamConfig() defaults) over PageRank on core_periphery_graph(seed=1,
    chords=1) at n = 2^20 (PR_STREAM_N, cut from phase 3's 2^21 for the
-   time limit; t2 scaled to its 1/n), bootstrapped by a cold run, then two
-   synthetic_stream batches (10 edits, 200 edits with deletes; a third, of
-   200 edits without deletes, went for the time limit). After each batch
-   the warm
-   values must agree with BaselineEngine on the mutated graph (rtol=1e-4,
-   atol=2e-3/n). Then SSSP with deletes (three batches of 200 edits) on a
+   time limit; t2 scaled to its 1/n), bootstrapped by a
+   cold run, then two synthetic_stream batches (10 edits, 200 edits with
+   deletes; a third, of 200 edits without deletes, went for the time
+   limit). After each batch the warm values must agree with
+   BaselineEngine on the mutated graph (rtol=1e-4, atol=2e-3/n). Then
+   SSSP with deletes (three batches of 200 edits) on a
    weighted powerlaw_graph, bitwise equal to the baseline after each
    batch; it runs at n = 2^19 (SSSP_STREAM_N): its cold bootstrap at
    n = 2^21 alone takes about as long as phase 3's SSSP run. Each batch
@@ -146,7 +160,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       as the library yardstick (timed only, never on the path) and the
       bound (the larger of the flops at the bf16 rate and the bytes), with
       TFLOP/s; the plain version timed at llama3p2_1b's shape, and the f32
-      route once there. Then hymba_1p5b's heads (an odd GQA group) at the
+      route once there beside scaled_dot_product_attention on the same f32
+      inputs. Then hymba_1p5b's heads (an odd GQA group) at the
       same S, masks and tolerances, from a generator of their own.
    b. llama3p2_1b at its published width and depth (16 layers, d = 2048,
       1.24B parameters) from the port's init_params on the card, every
@@ -238,6 +253,9 @@ DIST_ROWS = 16  # phase 6a's seeded rows per storage group
 SEG_UNSORTED_E = 1 << 20  # phase 6a's synthetic unsorted row
 COLD_PASSES = 7  # phase 6a: cold passes timed, kernel and library each
 SEED = 0
+SWEEP_SEED = 90  # phase 2e's own generator: its draws shift no earlier one's
+WINDOW = 100  # phase 3's windows: supersteps from the start of a run
+WINDOWS = 3  # windows timed, and as many profiled
 DEV = "cuda"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM data sheet, dense bf16
 TF32_FLOPS_PER_S = 495e12  # the same, dense TF32
@@ -319,6 +337,13 @@ def mid_run_state(name, n_pad, rng):
         return rng.uniform(0.0, 2.0 / n_pad, n_pad).astype(np.float32)
     return np.where(rng.random(n_pad) < 0.4, np.float32(1e18),
                     rng.uniform(0.0, 30.0, n_pad)).astype(np.float32)
+
+
+def w_bytes(program) -> int:
+    """The bytes of an edge's weight that ``program``'s edge_map reads:
+    4 for the weighted shortest paths (sssp, k_sssp), 0 for the families
+    that ignore the weight."""
+    return 4 if program.name in ("sssp", "k_sssp") else 0
 
 
 def sweep(program, n_total, ed, values, rows, ok, psd, dmax, sc, *, floor,
@@ -410,10 +435,11 @@ def check_against_plain(label, program, ed, c, n_live, n_total, values,
 
 
 def time_full_sweep(label, program, ed, c, n_live, n_total, values0,
-                    floor=None, psd0=None):
+                    floor=None, psd0=None, plain=True):
     """Phase 2 timings: one cold sweep of every block from one snapshot,
-    by the kernel, the plain version on the card and a library yardstick,
-    beside the least time the card could take for the same work."""
+    by the kernel, the plain version on the card (unless ``plain`` is off)
+    and a library yardstick, beside the least time the card could take for
+    the same work."""
     import numpy as np
     import torch
     from repro_torch.kernels import block_sweep as kb
@@ -445,7 +471,8 @@ def time_full_sweep(label, program, ed, c, n_live, n_total, values0,
             sweep(program, n_total, ed, values, rows, ok, psd, dmax, sc,
                   plain=plain, out=out, **args)
     ms = cuda_ms(run, 20)
-    plain_ms = cuda_ms(lambda: run(plain=True), 1, warmup=False)
+    plain_ms = cuda_ms(lambda: run(plain=True), 1, warmup=False) \
+        if plain else None
     # the work this mask needs: tiles that feed an active sub-range, and
     # the vertices of the active sub-ranges
     valid = ed.valid
@@ -463,10 +490,12 @@ def time_full_sweep(label, program, ed, c, n_live, n_total, values0,
     n_pad = values.numel()
     n_out = int(vert_act.sum())
     # each input read once, each output written once: the needed tile slots
-    # (4 B src + 4 B w + 1 B valid + 4 B link), values in, aux in where the
-    # program's edge_map reads it, the active values out, psd and dmax out
+    # (4 B src + 1 B valid + 4 B destination, and 4 B w where the program's
+    # edge_map reads it), values in, aux in where edge_map reads it, the
+    # active values out, psd and dmax out
     aux_bytes = n_total * 4 if program.aux_fn is not None else 0
-    nbytes = m * 13 + n_pad * 4 + aux_bytes + n_out * 4 + P * nsub * 8
+    nbytes = (m * (9 + w_bytes(program)) + n_pad * 4 + aux_bytes + n_out * 4
+              + P * nsub * 8)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     # library yardstick (timed here only): gather + map + scatter-reduce
     # over the edges the mask needs
@@ -490,11 +519,187 @@ def time_full_sweep(label, program, ed, c, n_live, n_total, values0,
     library_ms = cuda_ms(library, 20)
     log(f"[kernel] {label}: full cold sweep of {P} blocks, {m} needed "
         f"edges, {int(ed.tile_cnt.sum())} tiles, {n_out} active vertex "
-        f"slots: kernel {ms!r} ms, plain {plain_ms!r} ms, library "
-        f"{library_ms!r} ms, bound {bound_ms!r} ms ({nbytes} B at "
+        f"slots: kernel {ms!r} ms, plain "
+        f"{'not timed' if plain_ms is None else repr(plain_ms) + ' ms'}, "
+        f"library {library_ms!r} ms, bound {bound_ms!r} ms ({nbytes} B at "
         f"{HBM_BYTES_PER_S:.3g} B/s)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms)
+
+
+def sweep_row_stats(label, ed, c, hub, live=None):
+    """Phase 2e: what the sweep's tiles hold, from the tiles themselves
+    (any kernel's metadata aside). A destination's run in a tile is its
+    valid slots there; each run is one partial of its destination. Over
+    all tiles and over the hub block's: runs per tile, the longest run per
+    tile and the share of slots in runs longer than 32, and the partials
+    per destination (largest, and the distribution). With ``live`` ((P,
+    S) bool, a masked slate's sub-ranges), the tiles the masked sweep
+    needs (coverage meets a live sub-range) against every tile."""
+    import numpy as np
+    import torch
+    P = ed.tile_cnt.numel()
+    cnt = ed.tile_cnt.long()
+    block_of_tile = torch.repeat_interleave(torch.arange(P, device=DEV), cnt)
+    first = int(ed.tile_start[hub])
+    for what, t0, t1 in (("all tiles", 0, ed.valid.shape[0]),
+                         (f"hub block {hub}", first,
+                          first + int(cnt[hub]))):
+        valid = ed.valid[t0:t1]
+        tile, slot = torch.nonzero(valid, as_tuple=True)
+        dst = block_of_tile[t0:t1][tile] * c + ed.dstl[t0:t1][tile, slot]
+        key = (tile.long() + t0) * (P * c) + dst
+        runs, length = torch.unique_consecutive(torch.sort(key).values,
+                                                return_counts=True)
+        run_tile = runs // (P * c) - t0
+        longest = torch.zeros(t1 - t0, dtype=torch.long, device=DEV)
+        longest.scatter_reduce_(0, run_tile, length, reduce="amax")
+        per_tile = torch.bincount(run_tile, minlength=t1 - t0)
+        parts = torch.unique(runs % (P * c), return_counts=True)[1]
+        q = torch.quantile(parts.double(), torch.tensor(
+            [0.5, 0.9, 0.99, 0.999], dtype=torch.double, device=DEV))
+        log(f"[kernel] {label} tile statistics, {what} ({t1 - t0} tiles, "
+            f"{int(length.sum())} valid slots, {runs.numel()} runs): runs "
+            f"per tile median {float(per_tile.double().median())} max "
+            f"{int(per_tile.max())}; longest run per tile median "
+            f"{float(longest.double().median())} max {int(longest.max())}, "
+            f"tiles whose longest run is 512: "
+            f"{int((longest == 512).sum())}; share of slots in runs "
+            f"longer than 32: "
+            f"{float(length[length > 32].sum()) / float(length.sum())!r}; "
+            f"partials per destination ({parts.numel()} destinations): max "
+            f"{int(parts.max())}, quantiles 0.5/0.9/0.99/0.999 "
+            f"{[float(x) for x in q]}, destinations of more than 64/256/"
+            f"1024/4096 partials "
+            f"{[int((parts > t).sum()) for t in (64, 256, 1024, 4096)]}")
+    if live is not None:
+        live = torch.as_tensor(live).to(DEV)
+        need = (ed.cov & live[block_of_tile]).any(dim=1)
+        log(f"[kernel] {label} masked slate of every block, "
+            f"{float(live.double().mean())!r} of the sub-ranges live: "
+            f"{int(need.sum())} tiles needed of {need.numel()} (a masked "
+            f"sweep tests every tile's coverage), "
+            f"{int(ed.valid[need].sum())} needed slots")
+
+
+def time_sweep_shapes(label, program, ed, c, n_live, n_total, values0, hub,
+                      slate):
+    """Phase 2e: kernel 1 at the shapes the main path launches: a one-slot
+    pass of the hub block (a hot slot's pass) and a cold slate of
+    ``slate`` blocks, each into a second buffer so that every run reads the
+    same values: CUDA events over 20 calls, and the device time by kernel
+    of three calls."""
+    import torch
+    from repro_torch.kernels import block_sweep as kb
+    P = ed.tile_cnt.numel()
+    values = torch.as_tensor(values0).to(DEV)
+    out = torch.empty_like(values)
+    psd = torch.zeros(P, 1, device=DEV)
+    dmax = torch.zeros(P, 1, device=DEV)
+    sc = kb.make_scratch(ed, c)
+    for what, rows in (("one-slot pass of hub block", [hub]),
+                       (f"{len(slate)}-slot cold slate", slate)):
+        r = torch.tensor(rows, dtype=torch.int32, device=DEV)
+        ok = torch.ones(r.numel(), dtype=torch.bool, device=DEV)
+
+        def run():
+            kb.block_sweep(program, n_total, ed, values, r, ok, psd, dmax,
+                           sc, block_size=c, n_live=n_live, out=out)
+
+        ms = cuda_ms(run, 20)
+        tiles = int(ed.tile_cnt[r.long()].sum())
+        # three calls: a window's first kernel is sometimes missing from
+        # the profiler's key_averages()
+        prof = profile_kernels(lambda: [run() for _ in range(3)])
+        log(f"[kernel] {label} kernel 1, {what} ({tiles} tiles): {ms!r} ms; "
+            f"device time by kernel (torch.profiler, three calls): "
+            f"{describe_profile(prof)}")
+
+
+def sweep_shapes_phase(engines, times, srng, pagerank_full=False):
+    """Phase 2e: kernels 1 and 1m on both graphs at the main path's shapes,
+    with the statistics that explain their times (``sweep_row_stats``,
+    ``time_sweep_shapes``); on the SSSP graph (and on the PageRank graph
+    with ``pagerank_full``) the full cold sweeps of kernel 1 and of 1m all
+    live and about 1/S live, with the library yardstick and no plain
+    version. Its draws come from ``srng`` alone."""
+    import numpy as np
+    for name, (sa, _) in engines.items():
+        c, n_live, n_total = BLOCK, sa.plan.n_live, sa.plan.graph.n
+        P = sa.plan.num_blocks
+        hub = int(np.argmax(sa.plan.unified.tile_cnt))
+        floor = np.float32(sa._psd_floor())
+        slate = sorted(int(b) for b in srng.choice(
+            np.setdiff1d(np.arange(P), [hub]), WIDTH, replace=False))
+        psd8 = sub_mask_psd(srng, P, SUB, floor, 1.0 / SUB)
+        ed8 = masked_tiles(sa, SUB)
+        sweep_row_stats(name, ed8, c, hub, live=psd8 >= floor)
+        time_sweep_shapes(name, sa.program, sa.edge_state, c, n_live,
+                          n_total, sa.values0, hub, slate)
+        if name == "sssp" or pagerank_full:
+            key = "full" if name == "pagerank" else name
+            times[key] = time_full_sweep(
+                f"{name} kernel 1", sa.program, sa.edge_state, c, n_live,
+                n_total, sa.values0, plain=False)
+            for frac, psd0 in ((1.0, sub_mask_psd(srng, P, SUB, floor, 1.0)),
+                               (1.0 / SUB, psd8)):
+                times[(key, frac)] = time_full_sweep(
+                    f"{name} kernel 1m S={SUB}, live fraction {frac!r}",
+                    sa.program, ed8, c, n_live, n_total, sa.values0,
+                    floor=floor, psd0=psd0, plain=False)
+        del ed8
+
+
+def superstep_windows(label, eng):
+    """Phase 3: WINDOW supersteps from the start of ``eng``'s run, WINDOWS
+    times by the host clock (ending in a synchronize) and WINDOWS times
+    under torch.profiler: wall and device busy time per superstep (median
+    and spread), sweep calls per superstep, and the device time by kernel
+    of the last profiled window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    walls, busy, prof_walls = [], [], []
+    steps = calls = 0
+    kernels = []
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(max_iterations=WINDOW)
+        torch.cuda.synchronize()
+        steps = res.metrics.iterations
+        walls.append((time.perf_counter() - t0) * 1e3 / steps)
+    for _ in range(WINDOWS):
+        zero_counts()
+        torch.cuda.synchronize()
+        # the card's activity alone: a window is ~30,000 kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.run(max_iterations=WINDOW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        calls = sum(launch_counts())
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"
+                   and e.self_device_time_total > 0]
+        kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        busy.append(sum(e.self_device_time_total for e in kernels)
+                    / 1e3 / steps)
+        prof_walls.append(wall * 1e3 / steps)
+
+    def spread(xs):
+        xs = sorted(xs)
+        return f"median {xs[len(xs) // 2]!r} [{xs[0]!r}, {xs[-1]!r}]"
+
+    log(f"[run] {label} window of {steps} supersteps from the start, "
+        f"{WINDOWS} times each: wall ms per superstep {spread(walls)}; "
+        f"profiled: device busy ms per superstep {spread(busy)}, wall ms "
+        f"per superstep {spread(prof_walls)} (inflated by the profiler); "
+        f"{calls / steps!r} sweep calls per superstep")
+    log(f"[run] {label} window device time by kernel (last profiled "
+        f"window): " + "; ".join(
+            f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} ms "
+            f"{e.count}x" for e in kernels[:8]))
+    return dict(wall=walls, busy=busy, steps=steps, calls=calls)
 
 
 def masked_tiles(eng, nsub):
@@ -630,10 +835,12 @@ def check_lanes_against_plain(label, program, ed, c, n_live, n_total,
 
 
 def time_lane_sweep(label, program, ed, c, n_live, n_total, values0,
-                    vconst, floor=None, psd0=None, lane_done=None):
+                    vconst, floor=None, psd0=None, lane_done=None,
+                    plain=True):
     """Phase 2d timings: one cold lane sweep of every block from one
-    snapshot, by the kernel, the plain version on the card and a library
-    yardstick, beside the least time the card could take for the work."""
+    snapshot, by the kernel, the plain version on the card (unless
+    ``plain`` is off) and a library yardstick, beside the least time the
+    card could take for the work."""
     import numpy as np
     import torch
     from repro_torch.kernels import block_sweep as kb
@@ -661,7 +868,8 @@ def time_lane_sweep(label, program, ed, c, n_live, n_total, values0,
         lane_sweep(program, n_total, ed, values, vc, rows, ok, psd, dmax, ld,
                    sc, plain=plain, **args)
     ms = cuda_ms(run, 20)
-    plain_ms = cuda_ms(lambda: run(plain=True), 1, warmup=False)
+    plain_ms = cuda_ms(lambda: run(plain=True), 1, warmup=False) \
+        if plain else None
     valid = ed.valid
     if masked:
         act = (torch.where(ld, 0.0, p0).amax(dim=-1) >= floor)  # (P, S)
@@ -675,17 +883,19 @@ def time_lane_sweep(label, program, ed, c, n_live, n_total, values0,
     n_pad = values.shape[0]
     n_out = int(vert_act.sum())
     # each input read once, each output written once: the needed tile slots
-    # (13 B), the values in, the active vertices' values out, psd and dmax
-    # out; aux in and the active vertices' vconst in only for a family
-    # whose edge_map reads aux and whose apply reads vconst (k_ppr)
+    # (9 B, and 4 B w where edge_map reads it), the values in, the active
+    # vertices' values out, psd and dmax out; aux in and the active
+    # vertices' vconst in only for a family whose edge_map reads aux and
+    # whose apply reads vconst (k_ppr)
     aux_b = 4 if program.aux_fn is not None else 0
     vc_b = 4 * L if program.uses_vconst else 0
-    nbytes = (m * 13 + n_pad * 4 * L + n_total * aux_b
+    slot_b = 9 + w_bytes(program)
+    nbytes = (m * slot_b + n_pad * 4 * L + n_total * aux_b
               + n_out * (4 * L + vc_b) + P * nsub * L * 8)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     # the same counted with one value gather (and aux gather) per edge slot
     # (what a kernel that caches nothing across slots must read)
-    gather_ms = (m * (13 + 4 * L + aux_b) + n_out * (4 * L + vc_b)) \
+    gather_ms = (m * (slot_b + 4 * L + aux_b) + n_out * (4 * L + vc_b)) \
         / HBM_BYTES_PER_S * 1e3
     # library yardstick (timed here only): a gather of the (E, L) rows, the
     # map, and one scatter-reduce over the edges the mask needs
@@ -710,7 +920,8 @@ def time_lane_sweep(label, program, ed, c, n_live, n_total, values0,
     library_ms = cuda_ms(library, 10)
     log(f"[kernel] {label}: full cold lane sweep of {P} blocks at L={L}, "
         f"{m} needed edges, {n_out} active vertex slots: kernel {ms!r} ms, "
-        f"plain {plain_ms!r} ms, library {library_ms!r} ms, bound "
+        f"plain {'not timed' if plain_ms is None else repr(plain_ms) + ' ms'}"
+        f", library {library_ms!r} ms, bound "
         f"{bound_ms!r} ms ({nbytes} B at {HBM_BYTES_PER_S:.3g} B/s; with a "
         f"gather per edge slot {gather_ms!r} ms)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -1475,6 +1686,63 @@ def segment_repeats(repeats: int) -> int:
     return 0
 
 
+def main_path_engines(baseline: bool):
+    """Phase 3's graphs and engines (the structure-aware engine, and with
+    ``baseline`` the baseline beside it), with their set-up lines. Returns
+    ``({name: (sa, baseline or None)}, {name: graph})``."""
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import graph as G
+    from repro_torch.core.baseline import BaselineEngine
+    from repro_torch.core.engine import EngineConfig, StructureAwareEngine
+    t0 = time.perf_counter()
+    cases = {
+        "pagerank": (A.pagerank(), G.core_periphery_graph(
+            N, avg_deg=AVG_DEG, seed=1, chords=1), T2_PAGERANK),
+        "sssp": (A.sssp(0), G.powerlaw_graph(N, avg_deg=AVG_DEG, seed=2,
+                                             weighted=True), T2),
+    }
+    engines = {}
+    for name, (prog, g, t2) in cases.items():
+        cfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=t2)
+        sa = StructureAwareEngine(g, prog, cfg, device=DEV)
+        engines[name] = (sa, BaselineEngine(g, prog, cfg, frontier=False,
+                                            device=DEV) if baseline else None)
+        log(f"[setup] {name}: n={g.n} m={g.m} P={sa.plan.num_blocks} "
+            f"tiles={int(sa.plan.unified.tile_cnt.sum())} hub block tiles="
+            f"{int(sa.plan.unified.tile_cnt.max())} "
+            f"hot-born={sa.barrier_block}")
+    log(f"[setup] graphs and engines built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return engines, {name: case[1] for name, case in cases.items()}
+
+
+def sweep_profile() -> int:
+    """``--sweep-profile``: kernels 1 and 1m alone, in one process: it
+    builds the sweep kernel and phase 3's graphs and engines, runs phase
+    2e on both graphs (the PageRank graph's full sweeps too) and phase 3's
+    superstep windows, and prints the readings as one JSON line. No
+    checks against the plain version and no result line: the smoke run
+    is the one without arguments."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    log(f"[device] {card_line()}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    _build.build("block_sweep")
+    engines, _ = main_path_engines(baseline=False)
+    times = {}
+    sweep_shapes_phase(engines, times, np.random.default_rng(SWEEP_SEED),
+                       pagerank_full=True)
+    windows = {name: superstep_windows(f"{name} structure-aware", sa)
+               for name, (sa, _) in engines.items()}
+    log(f"[done] in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"sweep_profile": {
+        "times": {str(k): v for k, v in times.items()},
+        "windows": windows}}))
+    return 0
+
+
 def attention_phase():
     """Phase 8a: kernel 4 against its plain version on the card at the
     dense archs' and hymba_1p5b's head shapes, and at three prefill shapes
@@ -1570,11 +1838,16 @@ def attention_phase():
     q, k, v = (torch.randn(b, h, s, d, generator=gen, device=DEV)
                for h in (hq, hkv, hkv))
     ms = cuda_ms(lambda: FA.flash_attention(q, k, v), 5)
+    # the library yardstick on the same f32 inputs (timed only)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 5)
     flops = 2 * b * hq * s * s * d
+    timed[LM_ARCH].update(f32_ms=ms, f32_library_ms=library_ms)
     log(f"[kernel] 8a: kernel 4's f32 route at {LM_ARCH}'s prefill shape: "
         f"{ms!r} ms at {flops / ms / 1e9:.4g} TFLOP/s (the f32 CUDA-core "
         f"rate {F32_FLOPS_PER_S / 1e12:.4g} TFLOP/s: "
-        f"{flops / F32_FLOPS_PER_S * 1e3!r} ms)")
+        f"{flops / F32_FLOPS_PER_S * 1e3!r} ms), scaled_dot_product_attention "
+        f"on the same f32 inputs {library_ms!r} ms")
     del q, k, v
     # hymba_1p5b's heads (25 q heads over 5 kv heads: an odd GQA group),
     # from a generator of their own so that the draws above stay as they
@@ -1977,11 +2250,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if sys.argv[1:2] == ["--segment-repeats"]:
         return segment_repeats(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--sweep-profile"]:
+        return sweep_profile()
     import numpy as np
     from repro_torch.core import algorithms as A
     from repro_torch.core import graph as G
-    from repro_torch.core.baseline import BaselineEngine
-    from repro_torch.core.engine import EngineConfig, StructureAwareEngine
+    from repro_torch.core.engine import EngineConfig
     from repro_torch.kernels import _build
     from repro_torch.kernels import block_sweep as kb
     from repro_torch.stream import StreamingEngine, synthetic_stream
@@ -2003,26 +2277,7 @@ def main() -> int:
         log(Path(str(lib_path) + ".log").read_text().strip())
 
     # -- the graphs and engines of the main path -----------------------------
-    t0 = time.perf_counter()
-    cases = {
-        "pagerank": (A.pagerank(), G.core_periphery_graph(
-            N, avg_deg=AVG_DEG, seed=1, chords=1), T2_PAGERANK),
-        "sssp": (A.sssp(0), G.powerlaw_graph(N, avg_deg=AVG_DEG, seed=2,
-                                             weighted=True), T2),
-    }
-    engines = {}
-    for name, (prog, g, t2) in cases.items():
-        cfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=t2)
-        engines[name] = (StructureAwareEngine(g, prog, cfg, device=DEV),
-                         BaselineEngine(g, prog, cfg, frontier=False,
-                                        device=DEV))
-        sa = engines[name][0]
-        log(f"[setup] {name}: n={g.n} m={g.m} P={sa.plan.num_blocks} "
-            f"tiles={int(sa.plan.unified.tile_cnt.sum())} hub block tiles="
-            f"{int(sa.plan.unified.tile_cnt.max())} "
-            f"hot-born={sa.barrier_block}")
-    log(f"[setup] graphs and engines built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    engines, graphs = main_path_engines(baseline=True)
 
     # -- phase 2: kernels vs plain, and the sweeps' times --------------------
     log(f"[time] phase 2 starts at {time.perf_counter() - t_start:.1f} s")
@@ -2050,8 +2305,13 @@ def main() -> int:
                     f"{name} kernel 1m S={SUB}, live fraction {frac!r}",
                     sa.program, ed8, c, n_live, n_total, sa.values0,
                     floor=floor, psd0=sub_mask_psd(rng, sa.plan.num_blocks,
-                                                   SUB, floor, frac))
+                                                   SUB, floor, frac),
+                    plain=frac == 1.0)
         del ed8
+    # 2e: kernels 1 and 1m at the main path's shapes, from a generator of
+    # its own
+    log(f"[time] phase 2e starts at {time.perf_counter() - t_start:.1f} s")
+    sweep_shapes_phase(engines, times, np.random.default_rng(SWEEP_SEED))
     # 2c: a mutated layout (appends, kill holes and rebuilt runs)
     t0 = time.perf_counter()
     gm = G.powerlaw_graph(MUTATE_N, avg_deg=AVG_DEG, seed=3)
@@ -2132,7 +2392,8 @@ def main() -> int:
                     prog, ed8, c, n_live, n_total, values, vconst,
                     floor=floor, lane_done=np.zeros(LANES, bool),
                     psd0=np.repeat(sub_mask_psd(rng, P, SUB, floor, frac)
-                                   [:, :, None], LANES, axis=2))
+                                   [:, :, None], LANES, axis=2),
+                    plain=frac == 1.0)
             # a one-lane k_sssp sweep is kernel 1's sssp sweep, bitwise
             rows = torch.arange(P, dtype=torch.int32, device=DEV)
             ok = torch.ones(P, dtype=torch.bool, device=DEV)
@@ -2191,6 +2452,8 @@ def main() -> int:
     base_r = results[("pagerank", "baseline")]
     agree("pagerank", sa_r.values, base_r.values, exact=False)
     pr_base = base_r.values  # phase 6b's reference
+    for name, (sa, _) in engines.items():
+        superstep_windows(f"{name} structure-aware", sa)
     log("[check] sssp fixpoints bitwise equal; pagerank within rtol=1e-4, "
         f"atol=2e-3/n; gain: pagerank "
         f"{base_r.metrics.updates / max(sa_r.metrics.updates, 1):.2f}x "
@@ -2201,8 +2464,8 @@ def main() -> int:
 
     # -- phase 4: streaming with hierarchical partitions ---------------------
     log(f"[time] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
-    g = cases["pagerank"][1]  # phase 6's graph
-    del cases
+    g = graphs["pagerank"]  # phase 6's graph
+    del graphs
     gp = G.core_periphery_graph(PR_STREAM_N, avg_deg=AVG_DEG, seed=1,
                                 chords=1)
     scfg = EngineConfig(block_size=BLOCK, width=WIDTH,
@@ -2337,7 +2600,9 @@ def main() -> int:
              replaces="src/repro/kernels/block_sweep.py:131",
              launches=masked_launches, max_abs_err=max(errs["1m"]),
              ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
-             bound_by="bytes", library_ms=tm["library_ms"]),
+             bound_by="bytes", library_ms=tm["library_ms"],
+             **{f"sssp_eighth_{k}": v for k, v in
+                times[("sssp", 1.0 / SUB)].items() if k != "plain_ms"}),
         dict(name="lane_block_sweep", route="cuda",
              source="src/repro_torch/csrc/block_sweep.cu",
              replaces="src/repro/kernels/block_sweep.py:136",
@@ -2371,7 +2636,8 @@ def main() -> int:
              launches=fa_launches, max_abs_err=max(fa_errs.values()),
              ms=fa_t["ms"], plain_ms=fa_t["plain_ms"],
              bound_ms=fa_t["bound_ms"], bound_by=fa_t["bound_by"],
-             library_ms=fa_t["library_ms"]),
+             library_ms=fa_t["library_ms"], f32_ms=fa_t["f32_ms"],
+             f32_library_ms=fa_t["f32_library_ms"]),
         dict(name="ssd_intra_chunk", route="cuda",
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:26",

@@ -163,7 +163,7 @@ class WarmStart:
 class EdgeData(NamedTuple):
     """Device-resident edge state of the tiled layout. The first six fields
     are the reference's ``EdgeData``; the last four are the sweep kernel's
-    fold metadata (``kernels.block_sweep.fold_metadata``), derived from the
+    run table (``kernels.block_sweep.fold_metadata``), derived from the
     tiles, kept current by the commits and never billed as an upload."""
 
     src: torch.Tensor  # (n_tiles, TILE) int32
@@ -174,10 +174,10 @@ class EdgeData(NamedTuple):
     aux: torch.Tensor  # (n,) float32 per-vertex constant (e.g. out-degree)
     tile_start: torch.Tensor  # (P,) int32
     tile_cnt: torch.Tensor  # (P,) int32
-    link: torch.Tensor  # (n_tiles, TILE) int32: next slot of a run, head
-    heads: torch.Tensor  # (n_tiles * TILE,) int32: vertices' head slots
-    hlo: torch.Tensor  # (values_len,) int32: v's heads are heads[hlo:hhi]
-    hhi: torch.Tensor  # (values_len,) int32
+    rslot: torch.Tensor  # (n_tiles, TILE) int16: valid slots in run order
+    tinfo: torch.Tensor  # (n_tiles,) int32: valid slots, runs, sorted flag
+    runs: torch.Tensor  # (n_tiles * TILE, 2) int32: first position, partial
+    pspan: torch.Tensor  # (values_len, 2) int32: v's partials [lo, hi)
 
 
 # the reference's EdgeData fields: the full upload and the commits' bytes
@@ -205,7 +205,7 @@ def edge_data(store: TiledStorage, aux, block_size: int, values_len: int,
     cnt = np.asarray(store.tile_cnt, dtype=np.int64)
     if not np.array_equal(np.asarray(store.tile_start, dtype=np.int64),
                           np.cumsum(cnt) - cnt):
-        # the fold metadata packs each block's heads in its own slot range
+        # the run table packs each block's partials in its own slot range
         raise ValueError("tile runs must be laid out in block order")
 
     def dev(a, dtype):
@@ -219,15 +219,15 @@ def edge_data(store: TiledStorage, aux, block_size: int, values_len: int,
     valid = dev(store.valid, torch.bool)
     tile_start = dev(store.tile_start, torch.int32)
     tile_cnt = dev(store.tile_cnt, torch.int32)
-    link, heads, hlo, hhi = kb.fold_metadata(dstl, valid, tile_start,
-                                             tile_cnt, block_size, values_len)
+    rslot, tinfo, runs, pspan = kb.fold_metadata(
+        dstl, valid, tile_start, tile_cnt, block_size, values_len)
     return EdgeData(src=dev(store.src, torch.int32), dstl=dstl,
                     w=dev(store.w, torch.float32), valid=valid,
                     cov=dev(tile_coverage(store.dst_local, store.valid,
                                           subblocks, block_size), torch.bool),
                     aux=dev(aux, torch.float32), tile_start=tile_start,
-                    tile_cnt=tile_cnt, link=link, heads=heads, hlo=hlo,
-                    hhi=hhi)
+                    tile_cnt=tile_cnt, rslot=rslot, tinfo=tinfo, runs=runs,
+                    pspan=pspan)
 
 
 # -- adaptive-schedule decision helpers (copies of the reference's) ----------

@@ -23,24 +23,28 @@ a block's tiles advances every lane:
   by the lanes, derived on the device from the lanes not done.
 
 The kernel is ``repro_torch/csrc/block_sweep.cu``; its source note gives
-the design: two launches (a parallel pass over every tile of the slate,
-then an ordered per-destination fold) so the hub block that a power-law
-graph puts first never runs on one SM, and a fixed sum order that the
-plain version here repeats bitwise on any tile layout. It is bound by
-bytes: ~21 B per edge slot (13 B tile row + 4 B value gather + 4 B aux
-gather) plus 4 B per vertex written.
+the design: kernels 1 and 1m are one launch per call (a warp per tile over
+the whole card, then the fold of each slot behind a completion counter, or
+behind a grid barrier for a slate of several slots), so the hub block that
+a power-law graph puts first never runs on one SM, in a fixed sum order
+that the plain version here repeats bitwise on any tile layout. It is
+bound by bytes: ~21 B per edge slot (13 B tile row + 4 B value gather + 4 B
+aux gather) plus 4 B per vertex written.
 
-The kernel finds each destination's messages through fold metadata that
-:func:`fold_metadata` derives from the tiles (per-slot links inside a tile,
-per-vertex lists of head slots in tile order). The streaming commit path
-refreshes it for the blocks it touches (:func:`refresh_fold_metadata`), so
-appends at a watermark, holes left by kills and runs rebuilt in any order
-are all swept in the order the plain version defines.
+The kernel finds each destination's messages through a run table that
+:func:`fold_metadata` derives from the tiles: each tile's valid slots in
+run order (sorted by destination, then slot), each run's first position and
+partial, and each vertex's partials, contiguous in tile order. The
+streaming commit path refreshes it for the blocks it touches
+(:func:`refresh_fold_metadata`), so appends at a watermark, holes left by
+kills and runs rebuilt in any order are all swept in the order the plain
+version defines.
 
 The wrappers launch the kernel for tensors on a CUDA device and run
 their plain version (:func:`block_sweep_ref`, :func:`lane_block_sweep_ref`)
 for tensors on the CPU; there is no other path. Each wrapper's
-``launches`` counts its kernel launch pairs.
+``launches`` counts its calls that launched the kernel (one launch for
+kernels 1 and 1m, a launch pair for 1l and 1lm).
 """
 from __future__ import annotations
 
@@ -54,34 +58,61 @@ import torch
 from repro_torch.kernels import _build
 
 TILE = 512  # csrc/block_sweep.cu: edge slots per tile row (partition.TILE)
-MAX_SLOTS = 8192  # csrc/block_sweep.cu: slate size the tile pass can scan
-MAX_BLOCK = 1024  # csrc/block_sweep.cu: one thread per block vertex
+MAX_SLOTS = 8192  # csrc/block_sweep.cu: slate size the kernels can scan
+MAX_BLOCK = 1024  # csrc/block_sweep.cu: vertices per block
 MAX_LANES = 32  # csrc/block_sweep.cu: lanes of one lane sweep
-TILE_CTAS_PER_SM = 4  # 512-thread tile-pass blocks resident per SM
-LINK_NEXT = 0x3FF  # csrc/block_sweep.cu: next slot of the run, local + 1
-LINK_HEAD = 0x10000  # csrc/block_sweep.cu: first slot of its run in a tile
+MAX_SUB = 32  # csrc/block_sweep.cu: sub-ranges a masked sweep tests at once
+SWEEP_WARPS = 8  # csrc/block_sweep.cu: warps (tiles in flight) per block
+LANE_CTAS_PER_SM = 4  # 512-thread lane tile-pass blocks resident per SM
+TINFO_RUNS = 10  # csrc/block_sweep.cu: tinfo = nv | nr << TINFO_RUNS ...
+TINFO_COUNT = 0x3FF
+TINFO_SORTED = 0x100000  # ... | TINFO_SORTED where run order is slot order
+
+
+class _SweepTiles(ctypes.Structure):
+    """csrc/block_sweep.cu ``SweepTiles``: one edge state's pointers and
+    scratch, packed once with the scratch."""
+    _fields_ = [("src", ctypes.c_void_p), ("w", ctypes.c_void_p),
+                ("aux", ctypes.c_void_p), ("rslot", ctypes.c_void_p),
+                ("tinfo", ctypes.c_void_p), ("runs", ctypes.c_void_p),
+                ("pspan", ctypes.c_void_p), ("tile_start", ctypes.c_void_p),
+                ("tile_cnt", ctypes.c_void_p), ("cov", ctypes.c_void_p),
+                ("part", ctypes.c_void_p), ("oldbuf", ctypes.c_void_p),
+                ("sync", ctypes.c_void_p), ("c", ctypes.c_int),
+                ("ncov", ctypes.c_int)]
+
+
+def _pack(ed, c, part, old, sync=None) -> _SweepTiles:
+    """The packed pointers of ``ed`` and a scratch's buffers (a lane
+    scratch has no ``sync``, and the lane kernels take aux per call)."""
+    return _SweepTiles(*(t.data_ptr() for t in (
+        ed.src, ed.w, ed.aux, ed.rslot, ed.tinfo, ed.runs, ed.pspan,
+        ed.tile_start, ed.tile_cnt, ed.cov, part, old)),
+        None if sync is None else sync.data_ptr(), c, int(ed.cov.shape[1]))
 
 
 @dataclasses.dataclass
 class SweepScratch:
-    """Device buffers one engine's sweeps reuse, and the host numbers that
-    size the tile pass's grid without reading the device. ``ed`` is the
-    edge state the buffers were sized and checked for."""
+    """Device buffers one engine's sweeps reuse, the host numbers that size
+    a call's grid without reading the device, and the edge state's packed
+    pointers. ``ed`` is the edge state the buffers were sized and checked
+    for."""
 
     ed: tuple
-    part: torch.Tensor  # (n_tiles * TILE,) f32: per-tile run partials
+    part: torch.Tensor  # (n_tiles * TILE,) f32: one partial per run
     old: torch.Tensor  # (block_size,) f32: a hot slot's pre-sweep values
+    sync: torch.Tensor  # (2,) int32: blocks arrived, barrier epoch
     tiles_ub: np.ndarray  # [k-1] = most tiles any k-slot slate can hold
-    tile_grid_cap: int  # tile-pass thread blocks that fill the card once
+    block_size: int
+    values_len: int
+    nblocks: int
+    args: _SweepTiles | None = None  # the packed pointers (CUDA only)
 
 
-def _grid_sizing(ed) -> tuple[np.ndarray, int]:
-    """(tiles_ub, tile_grid_cap) of a scratch over ``ed``'s tiles."""
-    dev = ed.src.device
+def _tiles_ub(ed) -> np.ndarray:
+    """[k-1] = the most tiles any k-slot slate of ``ed``'s blocks holds."""
     cnt = np.sort(ed.tile_cnt.cpu().numpy().astype(np.int64))[::-1]
-    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-           if dev.type == "cuda" else 1)
-    return np.maximum(np.cumsum(cnt), 1), TILE_CTAS_PER_SM * sms
+    return np.maximum(np.cumsum(cnt), 1)
 
 
 def make_scratch(ed, block_size: int) -> SweepScratch:
@@ -90,9 +121,12 @@ def make_scratch(ed, block_size: int) -> SweepScratch:
     scratch = SweepScratch(
         ed, torch.empty(ed.src.numel(), dtype=torch.float32, device=dev),
         torch.empty(block_size, dtype=torch.float32, device=dev),
-        *_grid_sizing(ed))
+        torch.zeros(2, dtype=torch.int32, device=dev), _tiles_ub(ed),
+        block_size, ed.pspan.shape[0], ed.tile_cnt.numel())
     if dev.type == "cuda":
         _check_edge_data(ed, block_size, scratch.part, scratch.old)
+        scratch.args = _pack(ed, block_size, scratch.part, scratch.old,
+                             scratch.sync)
     return scratch
 
 
@@ -107,10 +141,11 @@ class LaneScratch:
 
     tiles: tuple  # weakrefs to the EdgeData fields but aux, as checked
     lanes: int
-    part: torch.Tensor  # (n_tiles * TILE * L,) f32: per-tile run partials
+    part: torch.Tensor  # (n_tiles * TILE * L,) f32: one partial per run
     old: torch.Tensor  # (block_size * L,) f32: a hot slot's pre-sweep values
     tiles_ub: np.ndarray
-    tile_grid_cap: int
+    tile_grid_cap: int  # tile-pass thread blocks that fill the card
+    args: _SweepTiles | None = None  # the tiles' packed pointers (CUDA only)
 
 
 def _tile_fields(ed) -> tuple:
@@ -141,10 +176,14 @@ def make_lane_scratch(ed, block_size: int, lanes: int,
         return torch.empty(n, dtype=torch.float32, device=dev)
 
     tiles = tuple(weakref.ref(t) for t in _tile_fields(ed))
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 1)
     scratch = LaneScratch(tiles, lanes, buf("part", ed.src.numel() * lanes),
-                          buf("old", block_size * lanes), *_grid_sizing(ed))
+                          buf("old", block_size * lanes), _tiles_ub(ed),
+                          LANE_CTAS_PER_SM * sms)
     if dev.type == "cuda":
         _check_edge_data(ed, block_size, scratch.part, scratch.old)
+        scratch.args = _pack(ed, block_size, scratch.part, scratch.old)
     return scratch
 
 
@@ -152,41 +191,44 @@ def make_lane_scratch(ed, block_size: int, lanes: int,
 def fold_metadata(dstl: torch.Tensor, valid: torch.Tensor,
                   tile_start: torch.Tensor, tile_cnt: torch.Tensor,
                   block_size: int, values_len: int):
-    """(link, heads, hlo, hhi) for every block of the tiles, on their
-    device. A destination's RUN in a tile is its valid slots there, in slot
-    order; its HEAD is the run's first slot.
+    """(rslot, tinfo, runs, pspan), the run table of every block of the
+    tiles, on their device. A destination's RUN in a tile is its valid
+    slots there, in slot order; RUN ORDER lists a tile's valid slots by
+    (destination, slot), so each run is a stretch of it.
 
-    * ``link`` (n_tiles, TILE) int32: for a valid slot, the local index + 1
-      of the next slot of its run (0: none), or'ed with ``LINK_HEAD`` at a
-      head.
-    * ``heads`` (n_tiles * TILE,) int32: each vertex's head slots in tile
+    * ``rslot`` (n_tiles, TILE) int16: position j < nv holds the local
+      slot of the tile's j-th valid slot in run order (0 past nv).
+    * ``tinfo`` (n_tiles,) int32: ``nv | nr << TINFO_RUNS``, or'ed with
+      ``TINFO_SORTED`` where run order is slot order (``rslot[j] == j``).
+    * ``runs`` (n_tiles * TILE, 2) int32: row ``r * TILE + k``, k < nr, is
+      tile r's run k: its first position and the index of its partial.
+    * ``pspan`` (values_len, 2) int32: vertex v's partials are
+      ``[pspan[v, 0], pspan[v, 1])``, one per tile it has a run in, in tile
       order, packed per block inside the block's own slot range (a block
-      has no more heads than valid slots).
-    * ``hlo``/``hhi`` (values_len,) int32: vertex v's heads are
-      ``heads[hlo[v]:hhi[v]]``."""
+      has no more runs than valid slots)."""
     dev = dstl.device
-    link = torch.zeros(dstl.shape, dtype=torch.int32, device=dev)
-    heads = torch.zeros(dstl.numel(), dtype=torch.int32, device=dev)
-    hlo = torch.zeros(values_len, dtype=torch.int32, device=dev)
-    hhi = torch.zeros(values_len, dtype=torch.int32, device=dev)
+    rslot = torch.zeros(dstl.shape, dtype=torch.int16, device=dev)
+    tinfo = torch.zeros(dstl.shape[0], dtype=torch.int32, device=dev)
+    runs = torch.zeros((dstl.numel(), 2), dtype=torch.int32, device=dev)
+    pspan = torch.zeros((values_len, 2), dtype=torch.int32, device=dev)
     blocks = torch.arange(tile_cnt.numel(), device=dev)
-    _fold_links(dstl, valid, tile_start, tile_cnt, block_size, blocks,
-                link, heads, hlo, hhi)
-    return link, heads, hlo, hhi
+    _run_table(dstl, valid, tile_start, tile_cnt, block_size, blocks, rslot,
+               tinfo, runs, pspan)
+    return rslot, tinfo, runs, pspan
 
 
 def refresh_fold_metadata(ed, block_size: int, blocks) -> None:
-    """Recompute ``ed``'s fold metadata in place for the given blocks, after
+    """Recompute ``ed``'s run table in place for the given blocks, after
     their tile rows changed (streaming commits)."""
     blocks = torch.as_tensor(np.asarray(blocks, dtype=np.int64)).to(
         ed.src.device)
     if blocks.numel():
-        _fold_links(ed.dstl, ed.valid, ed.tile_start, ed.tile_cnt,
-                    block_size, blocks, ed.link, ed.heads, ed.hlo, ed.hhi)
+        _run_table(ed.dstl, ed.valid, ed.tile_start, ed.tile_cnt, block_size,
+                   blocks, ed.rslot, ed.tinfo, ed.runs, ed.pspan)
 
 
-def _fold_links(dstl, valid, tile_start, tile_cnt, c, blocks, link, heads,
-                hlo, hhi) -> None:
+def _run_table(dstl, valid, tile_start, tile_cnt, c, blocks, rslot, tinfo,
+               runs, pspan) -> None:
     dev = dstl.device
     ts = tile_start.long()[blocks]
     tc = tile_cnt.long()[blocks]
@@ -196,39 +238,55 @@ def _fold_links(dstl, valid, tile_start, tile_cnt, c, blocks, link, heads,
                                     tc)
     first_row = torch.cumsum(tc, 0) - tc
     rows = ts[owner] + torch.arange(nt, device=dev) - first_row[owner]
-    if nt:  # the metadata is a function of the current tiles alone
-        link[rows] = 0
-        heads.view(-1, TILE)[rows] = 0
+    if nt:  # the table is a function of the current tiles alone
+        rslot[rows] = 0
+        tinfo[rows] = 0
+        runs.view(-1, TILE, 2)[rows] = 0
     slots = (rows[:, None] * TILE
              + torch.arange(TILE, device=dev)).reshape(-1)
     blk = blocks[owner].repeat_interleave(TILE)
     live = valid.reshape(-1)[slots]
     slots, blk = slots[live], blk[live]
-    # sort the valid slots by (destination vertex, slot); slots ascend
-    key = blk * c + dstl.reshape(-1)[slots].long()
-    key, perm = torch.sort(key, stable=True)
-    slots, blk = slots[perm], blk[perm]
+    # run order: the valid slots sorted by (tile, destination, slot); the
+    # slots ascend, so a stable sort by (tile, destination) keeps slot order
     tile = slots // TILE
+    key, perm = torch.sort(tile * c + dstl.reshape(-1)[slots].long(),
+                           stable=True)
+    slots, blk, tile = slots[perm], blk[perm], tile[perm]
     n = slots.numel()
-    same = (key[1:] == key[:-1]) & (tile[1:] == tile[:-1])
-    nxt = torch.zeros(n, dtype=torch.int64, device=dev)
-    nxt[:-1] = torch.where(same, slots[1:] % TILE + 1, 0)
+    pos = torch.arange(n, device=dev) - torch.searchsorted(tile, tile)
+    local = slots % TILE
+    rslot.view(-1)[tile * TILE + pos] = local.to(torch.int16)
     head = torch.ones(n, dtype=torch.bool, device=dev)
-    head[1:] = ~same
-    link.view(-1)[slots] = (nxt | head.long() * LINK_HEAD).to(torch.int32)
-    hkey, hslot, hblk = key[head], slots[head], blk[head]
-    # each block's heads fill its own slot range from its first slot
-    area = tile_start.long()[hblk] * TILE
-    rank = torch.arange(hkey.numel(), device=dev) \
-        - torch.searchsorted(hkey, hblk * c)
-    heads[area + rank] = hslot.to(torch.int32)
+    head[1:] = key[1:] != key[:-1]
+    htile, hpos, hblk = tile[head], pos[head], blk[head]
+    hdst = hblk * c + key[head] % c  # the runs' vertices
+    hrank = torch.arange(htile.numel(), device=dev) \
+        - torch.searchsorted(htile, htile)
+    nrows = rslot.shape[0]
+    nv = torch.bincount(tile, minlength=nrows)
+    nr = torch.bincount(htile, minlength=nrows)
+    unsorted = torch.bincount(tile, weights=(local != pos).to(torch.float32),
+                              minlength=nrows)
+    info = nv | (nr << TINFO_RUNS) | torch.where(unsorted > 0, 0,
+                                                 TINFO_SORTED)
+    tinfo[rows] = info[rows].to(torch.int32)
+    # each vertex's partials in tile order: the runs sorted by vertex
+    # (stable: tiles ascend), packed from its block's first slot
+    vkey, vperm = torch.sort(hdst, stable=True)
+    area = tile_start.long()[hblk[vperm]] * TILE
+    part = area + torch.arange(vkey.numel(), device=dev) \
+        - torch.searchsorted(vkey, hblk[vperm] * c)
+    at = (htile * TILE + hrank)[vperm]
+    runs[at] = torch.stack([hpos[vperm], part], dim=1).to(torch.int32)
     verts = (blocks[:, None] * c + torch.arange(c, device=dev)).reshape(-1)
     vblk = verts // c
-    start = tile_start.long()[vblk] * TILE - torch.searchsorted(hkey,
+    start = tile_start.long()[vblk] * TILE - torch.searchsorted(vkey,
                                                                vblk * c)
-    hlo[verts] = (start + torch.searchsorted(hkey, verts)).to(torch.int32)
-    hhi[verts] = (start + torch.searchsorted(hkey, verts, right=True)).to(
-        torch.int32)
+    pspan[verts] = torch.stack([
+        start + torch.searchsorted(vkey, verts),
+        start + torch.searchsorted(vkey, verts, right=True)],
+        dim=1).to(torch.int32)
 
 
 # -- wrappers ------------------------------------------------------------------
@@ -349,33 +407,56 @@ def masked_lane_block_sweep(program, n_total: int, ed,
 masked_lane_block_sweep.launches = 0
 
 
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+
+
+def _on(t, dtype, index) -> bool:
+    """Whether ``t`` is a contiguous ``dtype`` tensor on CUDA device
+    ``index``."""
+    return t.dtype is dtype and t.is_contiguous() and t.get_device() == index
+
+
 def _launch(program, n_total, ed, values, rows, ok, psd, dmax, scratch,
             block_size, n_live, first, last, out, floor) -> None:
     out = values if out is None else out
     masked = floor is not None
     nslots = rows.numel()
-    nsub = int(ed.cov.shape[1]) if masked else 1
-    _check_cuda(ed, values, rows, ok, psd, dmax, scratch, out, block_size,
-                nslots, first, last, nsub)
-    lib = _lib()
+    if scratch.ed is not ed or scratch.block_size != block_size \
+            or scratch.args is None:
+        raise ValueError("block_sweep: scratch built for other tiles, or "
+                         "for tiles off the card")
+    nsub = scratch.args.ncov if masked else 1
+    index = scratch.part.get_device()
+    if not (_on(values, _F32, index) and _on(out, _F32, index)
+            and _on(rows, _I32, index) and _on(ok, _BOOL, index)
+            and _on(psd, _F32, index) and _on(dmax, _F32, index)):
+        raise ValueError(f"block_sweep: expected contiguous float32 values, "
+                         f"out, psd and dmax, int32 rows and bool ok on "
+                         f"cuda:{index}")
+    if not 1 <= nslots <= MAX_SLOTS or ok.numel() != nslots:
+        raise ValueError(f"block_sweep: 1..{MAX_SLOTS} slots with one ok "
+                         f"flag each, got {nslots} and {ok.numel()}")
+    if values.numel() != scratch.values_len or out.numel() != values.numel():
+        raise ValueError("block_sweep: values must cover every block")
+    if psd.numel() != scratch.nblocks * nsub \
+            or dmax.numel() != psd.numel():
+        raise ValueError(f"block_sweep: psd/dmax need {nsub} entries per "
+                         "block")
+    if block_size % nsub or nsub > MAX_SUB:
+        raise ValueError(f"block_sweep: sub-blocks must divide the block, "
+                         f"at most {MAX_SUB}")
+    if not (first and last) and nslots != 1:
+        raise ValueError("block_sweep: multi-pass sweeps take one slot")
     d, cst = program.kernel_consts(n_total)
     ub = int(scratch.tiles_ub[min(nslots, scratch.tiles_ub.size) - 1])
-    grid = max(1, min(ub, scratch.tile_grid_cap))
-    fold_threads = max(32, 1 << (block_size - 1).bit_length())
-    stream = torch.cuda.current_stream(values.device).cuda_stream
+    lib = _lib()
     err = lib.block_sweep_launch(
-        ed.src.data_ptr(), ed.w.data_ptr(), ed.valid.data_ptr(),
-        ed.link.data_ptr(), values.data_ptr(), out.data_ptr(),
-        ed.aux.data_ptr(), ed.tile_start.data_ptr(), ed.tile_cnt.data_ptr(),
-        ed.heads.data_ptr(), ed.hlo.data_ptr(), ed.hhi.data_ptr(),
-        rows.data_ptr(), ok.data_ptr(), ed.cov.data_ptr(),
-        nslots, grid, fold_threads, block_size, n_live, program.kernel_id,
-        int(masked), nsub,
-        float(program.identity), d, cst,
-        float(np.float32(floor)) if masked else 0.0,
-        int(first), int(last),
-        scratch.part.data_ptr(), scratch.old.data_ptr(), psd.data_ptr(),
-        dmax.data_ptr(), stream)
+        ctypes.byref(scratch.args), values.data_ptr(), out.data_ptr(),
+        rows.data_ptr(), ok.data_ptr(), psd.data_ptr(), dmax.data_ptr(),
+        nslots, -(-ub // SWEEP_WARPS), n_live, program.kernel_id,
+        int(masked), nsub, float(program.identity), d, cst,
+        float(np.float32(floor)) if masked else 0.0, int(first), int(last),
+        torch._C._cuda_getCurrentRawStream(index))  # the current stream
     if err:
         raise RuntimeError("block_sweep launch failed: "
                            + lib.block_sweep_error_string(err).decode())
@@ -395,21 +476,17 @@ def _lane_launch(program, n_total, ed, values, vconst, rows, ok, psd, dmax,
     ub = int(scratch.tiles_ub[min(nslots, scratch.tiles_ub.size) - 1])
     grid = max(1, min(ub, scratch.tile_grid_cap))
     fold_threads = max(32, 1 << (block_size - 1).bit_length())
-    stream = torch.cuda.current_stream(values.device).cuda_stream
     err = lib.lane_block_sweep_launch(
-        ed.src.data_ptr(), ed.w.data_ptr(), ed.valid.data_ptr(),
-        ed.link.data_ptr(), values.data_ptr(), values.data_ptr(),
-        vconst.data_ptr(), ed.aux.data_ptr(), ed.tile_start.data_ptr(),
-        ed.tile_cnt.data_ptr(), ed.heads.data_ptr(), ed.hlo.data_ptr(),
-        ed.hhi.data_ptr(), rows.data_ptr(), ok.data_ptr(),
-        ed.cov.data_ptr(), lane_done.data_ptr(),
-        nslots, grid, fold_threads, block_size, lanes, n_live,
-        program.kernel_id, int(masked), nsub,
+        ctypes.byref(scratch.args), values.data_ptr(), values.data_ptr(),
+        vconst.data_ptr(), ed.aux.data_ptr(), rows.data_ptr(),
+        ok.data_ptr(), lane_done.data_ptr(), nslots, grid, fold_threads,
+        lanes, n_live, program.kernel_id, int(masked), nsub,
         float(program.identity), d, cst,
         float(np.float32(floor)) if masked else 0.0,
         int(first), int(last),
         scratch.part.data_ptr(), scratch.old.data_ptr(), psd.data_ptr(),
-        dmax.data_ptr(), stream)
+        dmax.data_ptr(), torch._C._cuda_getCurrentRawStream(
+            values.get_device()))
     if err:
         raise RuntimeError("lane_block_sweep launch failed: "
                            + lib.block_sweep_error_string(err).decode())
@@ -425,10 +502,10 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.block_sweep_launch.argtypes = (
-            [p] * 15 + [i] * 8 + [f] * 4 + [i] * 2 + [p] * 5)
+            [p] * 7 + [i] * 6 + [f] * 4 + [i] * 2 + [p])
         lib.block_sweep_launch.restype = i
         lib.lane_block_sweep_launch.argtypes = (
-            [p] * 17 + [i] * 9 + [f] * 4 + [i] * 2 + [p] * 5)
+            [p] * 8 + [i] * 8 + [f] * 4 + [i] * 2 + [p] * 5)
         lib.lane_block_sweep_launch.restype = i
         lib.block_sweep_error_string.argtypes = [i]
         lib.block_sweep_error_string.restype = ctypes.c_char_p
@@ -451,46 +528,25 @@ def _check_edge_data(ed, block_size, *bufs) -> None:
                     (ed.w, torch.float32),
                     (ed.valid, torch.bool), (ed.cov, torch.bool),
                     (ed.aux, torch.float32), (ed.tile_start, torch.int32),
-                    (ed.tile_cnt, torch.int32), (ed.link, torch.int32),
-                    (ed.heads, torch.int32), (ed.hlo, torch.int32),
-                    (ed.hhi, torch.int32)], ed.src.device)
+                    (ed.tile_cnt, torch.int32), (ed.rslot, torch.int16),
+                    (ed.tinfo, torch.int32), (ed.runs, torch.int32),
+                    (ed.pspan, torch.int32)], ed.src.device)
     if ed.src.dim() != 2 or ed.src.shape[1] != TILE:
         raise ValueError(f"block_sweep: tiles must be (n_tiles, {TILE})")
     if ed.src.numel() >= 2 ** 31:
         raise ValueError("block_sweep: tile slots must fit int32")
-    if ed.link.shape != ed.src.shape or ed.heads.numel() != ed.src.numel() \
+    if ed.rslot.shape != ed.src.shape \
+            or ed.tinfo.shape != ed.src.shape[:1] \
+            or ed.runs.shape != (ed.src.numel(), 2) \
             or ed.cov.dim() != 2 or ed.cov.shape[0] != ed.src.shape[0]:
-        raise ValueError("block_sweep: fold metadata or coverage shaped "
-                         "unlike the tiles")
+        raise ValueError("block_sweep: run table or coverage shaped unlike "
+                         "the tiles")
     if not 1 <= block_size <= MAX_BLOCK:
         raise ValueError(f"block_sweep: block_size must be 1..{MAX_BLOCK}")
-    if ed.hlo.numel() < ed.tile_cnt.numel() * block_size \
-            or ed.hhi.numel() != ed.hlo.numel():
-        raise ValueError("block_sweep: vertex heads must cover every block")
-
-
-def _check_cuda(ed, values, rows, ok, psd, dmax, scratch, out, block_size,
-                nslots, first, last, nsub) -> None:
-    """Per-launch checks; the edge state was checked with its scratch."""
-    if scratch.ed is not ed or scratch.old.numel() != block_size:
-        raise ValueError("block_sweep: scratch built for other tiles")
-    _check_tensors([(values, torch.float32), (out, torch.float32),
-                    (rows, torch.int32), (ok, torch.bool),
-                    (psd, torch.float32), (dmax, torch.float32)],
-                   ed.src.device)
-    nblocks = ed.tile_cnt.numel()
-    if not 1 <= nslots <= MAX_SLOTS or ok.numel() != nslots:
-        raise ValueError(f"block_sweep: 1..{MAX_SLOTS} slots with one ok "
-                         f"flag each, got {nslots} and {ok.numel()}")
-    if values.numel() != ed.hlo.numel() or out.numel() != values.numel():
-        raise ValueError("block_sweep: values must cover every block")
-    if psd.numel() != nblocks * nsub or dmax.numel() != nblocks * nsub:
-        raise ValueError(f"block_sweep: psd/dmax need {nsub} entries per "
+    if ed.pspan.dim() != 2 or ed.pspan.shape[1] != 2 \
+            or ed.pspan.shape[0] < ed.tile_cnt.numel() * block_size:
+        raise ValueError("block_sweep: vertex partials must cover every "
                          "block")
-    if block_size % nsub:
-        raise ValueError("block_sweep: sub-blocks must divide the block")
-    if not (first and last) and nslots != 1:
-        raise ValueError("block_sweep: multi-pass sweeps take one slot")
 
 
 def _check_lane_cuda(ed, values, vconst, rows, ok, psd, dmax, lane_done,
@@ -508,7 +564,7 @@ def _check_lane_cuda(ed, values, vconst, rows, ok, psd, dmax, lane_done,
                     (ok, torch.bool), (psd, torch.float32),
                     (dmax, torch.float32), (lane_done, torch.bool)], dev)
     nblocks = ed.tile_cnt.numel()
-    if values.dim() != 2 or values.shape != (ed.hlo.numel(), lanes) \
+    if values.dim() != 2 or values.shape != (ed.pspan.shape[0], lanes) \
             or vconst.shape != values.shape:
         raise ValueError("lane_block_sweep: values and vconst must be "
                          "(values_len, L) over every block")
@@ -630,28 +686,38 @@ def block_sweep_ref(program, n_total: int, ed, values: torch.Tensor,
                           ed.dstl[tiles].long(), c).cpu().numpy()
     aggs = torch.from_numpy(np.stack(_fold_runs(program, part, runs))).to(
         dev)
-    news = []
-    for agg, r, act in zip(aggs, slots, acts):
-        base = r * c
-        old = values[base:base + c].clone()
-        live = (base + torch.arange(c, device=dev)) < n_live
-        keep = live & act.repeat_interleave(sub)
-        new = torch.where(keep, program.apply(old, agg, n_total), old)
-        news.append((r, old, new, live, keep, act))
-    for r, old, new, live, keep, act in news:  # every slot read first
-        if first and not last:
-            scratch.old.copy_(old)
-        out[r * c:(r + 1) * c] = new
-        if last:
-            old0 = old if first else scratch.old
-            delta = torch.where(keep, program.sd_delta(old0, new),
-                                torch.zeros_like(new))
-            for s in torch.nonzero(act).view(-1).tolist():
-                seg = slice(s * sub, (s + 1) * sub)
-                cnt = max(int(live[seg].sum()), 1)
-                psd2[r, s] = pairwise_sum(delta[seg]) / torch.tensor(
-                    float(cnt), device=dev)
-                dmax2[r, s] = delta[seg].max()
+    # every slot at once, each slot's values read before any is written
+    act = torch.stack(acts).expand(len(slots), nsub)  # (k, S)
+    at = torch.tensor(slots, device=dev)[:, None] * c \
+        + torch.arange(c, device=dev)  # (k, C)
+    old = values[at]
+    live = at < n_live
+    keep = live & act.repeat_interleave(sub, dim=1)
+    new = torch.where(keep, program.apply(old, aggs, n_total), old)
+    if first and not last:
+        scratch.old.copy_(old[0])  # a hot slot: one slot
+    out[at] = new
+    if last:
+        old0 = old if first else scratch.old[None]
+        delta = torch.where(keep, program.sd_delta(old0, new),
+                            torch.zeros_like(new))
+        _write_deltas(delta, live, act, psd2, dmax2, at[:, 0] // c, nsub)
+
+
+def _write_deltas(delta, live, act, psd, dmax, rows, nsub) -> None:
+    """psd/dmax ((P, S) or (P, S, L)) at the slots' rows, for each active
+    sub-range: the pairwise-tree mean over its live vertices (at least one
+    in the count) and the max of ``delta`` ((k, C) or (k, C, L), zero
+    where not kept)."""
+    k, c = delta.shape[:2]
+    seg = delta.view(k, nsub, c // nsub, *delta.shape[2:])
+    cnt = live.view(k, nsub, -1).sum(dim=2).clamp_min(1).to(delta.dtype)
+    if delta.dim() == 3:
+        cnt = cnt[..., None]
+    mean = pairwise_sum(seg.movedim(2, 0)) / cnt
+    r, s = torch.nonzero(act, as_tuple=True)
+    psd[rows[r], s] = mean[r, s]
+    dmax[rows[r], s] = seg.amax(dim=2)[r, s]
 
 
 def lane_block_sweep_ref(program, n_total: int, ed, values: torch.Tensor,
@@ -690,28 +756,22 @@ def lane_block_sweep_ref(program, n_total: int, ed, values: torch.Tensor,
                            ed.w[tiles].reshape(-1)).view(-1, TILE, lanes)
     part = _tile_partials(program, msg, ed.valid[tiles],
                           ed.dstl[tiles].long(), c).cpu().numpy()
-    aggs = _fold_runs(program, part, runs)
-    news = []
-    for agg, r, act in zip(aggs, slots, acts):
-        base = r * c
-        old = values[base:base + c].clone()
-        live = (base + torch.arange(c, device=dev)) < n_live
-        keep = (live & act.repeat_interleave(sub))[:, None]
-        new = torch.where(keep, program.apply(
-            old, torch.from_numpy(agg).to(dev), vconst[base:base + c],
-            n_total), old)
-        news.append((r, old, new, live, keep, act))
+    aggs = torch.from_numpy(np.stack(_fold_runs(program, part, runs))).to(
+        dev)
+    # every slot at once, each slot's values read before any is written
+    act = torch.stack(acts).expand(len(slots), nsub)  # (k, S)
+    at = torch.tensor(slots, device=dev)[:, None] * c \
+        + torch.arange(c, device=dev)  # (k, C)
+    old = values[at]
+    live = at < n_live
+    keep = (live & act.repeat_interleave(sub, dim=1))[..., None]
+    new = torch.where(keep, program.apply(old, aggs, vconst[at], n_total),
+                      old)
     old_buf = scratch.old.view(c, lanes)
-    for r, old, new, live, keep, act in news:  # every slot read first
-        if first and not last:
-            old_buf.copy_(old)
-        values[r * c:(r + 1) * c] = new
-        if last:
-            delta = torch.where(keep, program.sd_delta(
-                old if first else old_buf, new), torch.zeros_like(new))
-            for s in torch.nonzero(act).view(-1).tolist():
-                seg = slice(s * sub, (s + 1) * sub)
-                cnt = max(int(live[seg].sum()), 1)
-                psd3[r, s] = pairwise_sum(delta[seg]) / torch.tensor(
-                    float(cnt), device=dev)
-                dmax3[r, s] = delta[seg].amax(dim=0)
+    if first and not last:
+        old_buf.copy_(old[0])  # a hot slot: one slot
+    values[at] = new
+    if last:
+        delta = torch.where(keep, program.sd_delta(
+            old if first else old_buf[None], new), torch.zeros_like(new))
+        _write_deltas(delta, live, act, psd3, dmax3, at[:, 0] // c, nsub)

@@ -2,15 +2,15 @@
 
 The port of ``repro/models/layers.py``: plain functions on tensors, in the
 reference's precision (norms and RoPE in f32, cast back to the input's
-dtype; the SwiGLU down projection accumulated in f32). The initializers
-draw from an explicit ``torch.Generator`` on the generator's device; they
-do not reproduce ``jax.random``'s numbers (tests hand the reference's
-parameters over instead, ``repro_torch.interop.lm_params_from_arrays``).
+dtype; the SwiGLU down projection accumulated in f32, and its SiLU in the
+reference's op order). The initializers draw from an explicit
+``torch.Generator`` on the generator's device; they do not reproduce
+``jax.random``'s numbers (tests hand the reference's parameters over
+instead, ``repro_torch.interop.lm_params_from_arrays``).
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -30,11 +30,29 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ w_gate) * (x @ w_up)
-    # f32 accumulation on the d_ff contraction, then the cast (the
-    # reference's preferred_element_type=f32): the products of two
-    # x.dtype values are exact in f32
-    return torch.matmul(h.float(), w_down.float()).to(x.dtype)
+    h = silu(x @ w_gate) * (x @ w_up)
+    return matmul_f32(h, w_down).to(x.dtype)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (a (..., K), b (K, N)) accumulated in f32, as the
+    reference's ``preferred_element_type=f32``. On a card, a bf16 or fp16
+    pair goes through ``torch.mm(..., out_dtype=torch.float32)``: the GEMM
+    reads the half-width operands into the tensor cores' f32 accumulator
+    and writes f32, so no partial sum is rounded to the operands' type (a
+    plain half-width ``matmul`` may reduce split-K partials in it). A
+    torch without that overload raises. Elsewhere both operands go to f32
+    first: the products of two bf16 values are exact in f32, so this is
+    the same function up to sum order."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        if "dtype" not in torch.ops.aten.mm.overloads():
+            raise RuntimeError(
+                f"torch {torch.__version__} has no aten::mm.dtype: no "
+                "half-width GEMM with an f32 accumulator and output")
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b,
+                       out_dtype=torch.float32)
+        return out.view(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
 
 
 def rope_freqs(head_dim: int, theta: float,

@@ -31,8 +31,8 @@ reference's routes hold: ``chunked_attention`` at S >= 2048,
 ``decode_attention`` and ``ssd_decode_step``. The cache's K/V, SSM states
 and conv windows are updated in place and the cache dict is returned; its
 ``pos`` is a Python int. The moe, vlm and audio families raise
-``NotImplementedError``; the reference's sharding hooks and
-``cast_weights_once`` are not ported yet (ROADMAP Queue 1 items 9-10), and
+``NotImplementedError``, and so does ``cast_weights_once``; the reference's
+sharding hooks are not ported yet (ROADMAP Queue 1 items 9-10), and
 ``remat`` has no effect on inference.
 """
 from __future__ import annotations
@@ -62,6 +62,15 @@ def _require_ported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to "
             f"repro_torch yet ({NOT_PORTED.get(cfg.family, 'ROADMAP')})")
+    if cfg.cast_weights_once:
+        # the reference casts the >= 2-D masters once per forward, outside
+        # its layer scan, so that sharded gathers move bf16; eager PyTorch
+        # casts each weight once per forward at its use, which gives the
+        # same bits, and the port has no sharded gathers to spare
+        raise NotImplementedError(
+            f"{cfg.name}: cast_weights_once is not ported (each weight is "
+            "cast once per forward at its use, with the same bits); set it "
+            "False")
 
 
 def _param(*shape, device, fill=None) -> nn.Parameter:

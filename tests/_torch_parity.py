@@ -43,60 +43,143 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+HUB_TILES = 1200  # hub_edge_data: whole tiles of the hub destination
+
+
+def _hub_block(c, rng):
+    """(dst, src) of a hub block in CSC order: destination 0 owns
+    HUB_TILES whole tiles, then every other destination a few edges."""
+    few = rng.integers(0, 6, c - 1)
+    dst = np.concatenate([np.zeros(HUB_TILES * 512, np.int64),
+                          np.repeat(np.arange(1, c), few)])
+    return dst, rng.integers(0, 2 * c, dst.size)
+
+
+def _tile_rows(dst, src, rng, mutate):
+    """Tile rows of one block's edges: in order (CSC), or as a stream
+    leaves them (each tile's slots shuffled, a fifth of them dead)."""
+    n_t = -(-dst.size // 512)
+    pad = n_t * 512 - dst.size
+    d = np.concatenate([dst, np.zeros(pad, np.int64)]).reshape(n_t, 512)
+    s = np.concatenate([src, np.zeros(pad, np.int64)]).reshape(n_t, 512)
+    v = (np.arange(n_t * 512) < dst.size).reshape(n_t, 512)
+    if mutate:
+        for t in range(n_t):
+            p = rng.permutation(512)
+            d[t], s[t], v[t] = d[t, p], s[t, p], v[t, p]
+        v &= rng.random(v.shape) > 0.2
+    return d, s, v
+
+
+def hub_edge_data(s_sub, rng, c=64):
+    """A hand-built EdgeData of two blocks of ``c`` vertices on the CPU:
+    the hub block in CSC order (destination 0 in HUB_TILES tiles of one
+    512-slot run each: HUB_TILES partials), then a block as a stream
+    leaves it (no tile in run order), with S = ``s_sub`` coverage and its
+    run table."""
+    from repro_torch.core.engine import EdgeData, tile_coverage
+    from repro_torch.kernels import block_sweep as kb
+    d0, s0 = _hub_block(c, rng)
+    d1 = np.sort(rng.integers(0, c, 3 * 512))
+    parts = [_tile_rows(d0, s0, rng, False),
+             _tile_rows(d1, rng.integers(0, 2 * c, d1.size), rng, True)]
+    dstl, src, valid = (np.concatenate([p[i] for p in parts])
+                        for i in range(3))
+    cnt = np.array([p[0].shape[0] for p in parts])
+    start = np.cumsum(cnt) - cnt
+
+    def t(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt)
+
+    tiles = dict(dstl=t(dstl, torch.int32), valid=t(valid, torch.bool),
+                 tile_start=t(start, torch.int32),
+                 tile_cnt=t(cnt, torch.int32))
+    table = kb.fold_metadata(tiles["dstl"], tiles["valid"],
+                             tiles["tile_start"], tiles["tile_cnt"], c,
+                             2 * c)
+    return EdgeData(
+        src=t(src, torch.int32),
+        w=t(rng.uniform(0.5, 4.0, dstl.shape), torch.float32),
+        cov=t(tile_coverage(dstl, valid, s_sub, c), torch.bool),
+        aux=t(rng.uniform(1.0, 9.0, 2 * c), torch.float32),
+        **tiles, **dict(zip(("rslot", "tinfo", "runs", "pspan"), table)))
+
+
+def _chain(fold, ident, xs):
+    """``xs`` folded left to right from ``ident`` in f32, one dependent
+    step at a time (numpy's ``accumulate`` is sequential; NaN, an unwritten
+    partial, propagates)."""
+    return fold.accumulate(np.concatenate(
+        [np.full((1,) + xs.shape[1:], ident, np.float32),
+         xs.astype(np.float32)]), axis=0)[-1]
+
+
+def _tile_order(ed, r, kb):
+    """Tile row ``r``'s run table as the kernel reads it: the valid slots in
+    run order (``rslot``, or the positions themselves on a tile flagged
+    sorted), and each run's [first, end) stretch of them with its
+    partial's index."""
+    info = int(ed.tinfo[r])
+    nv = info & kb.TINFO_COUNT
+    nr = (info >> kb.TINFO_RUNS) & kb.TINFO_COUNT
+    order = (np.arange(nv) if info & kb.TINFO_SORTED
+             else ed.rslot[r, :nv].numpy().astype(np.int64))
+    runs = ed.runs[r * kb.TILE:r * kb.TILE + nr].numpy()
+    ends = np.append(runs[1:, 0], nv)
+    return order, [(int(a), int(b), int(p))
+                   for (a, p), b in zip(runs, ends)]
+
+
 def emulate_kernel(program, n_total, ed, values, rows, ok, psd, dmax, *,
                    block_size, n_live, floor=None):
     """A one-pass sweep re-enacted in numpy the way csrc/block_sweep.cu
-    runs it: the tile pass walks each run's ``link`` chain from its head
-    and stores the partial at the head's slot; the fold adds each vertex's
-    partials through ``heads[hlo:hhi]``; the masked form skips tiles by
-    ``cov`` and keeps masked sub-ranges. The CUDA kernel cannot run on the
-    CPU, so this holds its order and its fold metadata against
+    runs it, from the run table alone: each tile's messages gathered in run
+    order (``rslot``, or the slots themselves where ``tinfo`` flags the
+    tile sorted), each run's stretch folded from the identity into the
+    partial its table row names; then every vertex's partials
+    ``pspan[v]``, contiguous, folded from the identity in order (by a
+    thread, or by a warp's shuffled chain past ``LONG_SPAN``: the same
+    chain); the masked form skips a tile unless its ``cov`` row meets the
+    slot's mask and keeps masked sub-ranges. Partials are NaN until
+    written, so one read before its write shows. The CUDA kernel cannot
+    run on the CPU, so this holds its order and its run table against
     ``block_sweep_ref`` on any layout. In place, like the kernel."""
     from repro_torch.kernels import block_sweep as kb
     c = block_size
     nsub = 1 if floor is None else int(ed.cov.shape[1])
     sub = c // nsub
     ident = np.float32(program.identity)
-    merge = {"sum": lambda a, b: np.float32(a + b),
-             "min": lambda a, b: min(a, b),
-             "max": lambda a, b: max(a, b)}[program.combine]
-    src = ed.src.numpy().reshape(-1)
-    w = ed.w.numpy().reshape(-1)
-    valid = ed.valid.numpy().reshape(-1)
-    link = ed.link.numpy().reshape(-1)
-    heads, hlo, hhi = ed.heads.numpy(), ed.hlo.numpy(), ed.hhi.numpy()
+    fold = {"sum": np.add, "min": np.minimum,
+            "max": np.maximum}[program.combine]
+    src = ed.src.numpy()
+    w = ed.w.numpy()
+    pspan = ed.pspan.numpy()
     cov = ed.cov.numpy()
     ts, tc = ed.tile_start.numpy(), ed.tile_cnt.numpy()
     psd2, dmax2 = psd.view(-1, nsub), dmax.view(-1, nsub)
     slots = [int(r) for r, k in zip(rows.tolist(), ok.tolist()) if k]
     acts = {r: (np.ones(1, bool) if floor is None
                 else psd2[r].numpy() >= np.float32(floor)) for r in slots}
-    part = np.zeros(src.size, np.float32)
-    for r in slots:  # launch 1: the tile pass
+    part = np.full(src.size, np.nan, np.float32)
+    for r in slots:  # the tiles, a warp each
         for t in range(ts[r], ts[r] + tc[r]):
             if floor is not None and not (cov[t] & acts[r]).any():
                 continue
-            e = t * kb.TILE + np.arange(kb.TILE)
-            m = program.edge_map(values[torch.from_numpy(src[e]).long()],
-                                 ed.aux[torch.from_numpy(src[e]).long()],
-                                 torch.from_numpy(w[e])).numpy()
-            heads_at = valid[e] & ((link[e] & kb.LINK_HEAD) > 0)
-            for j in np.flatnonzero(heads_at):
-                acc = merge(ident, m[j])
-                k = link[e[j]] & kb.LINK_NEXT
-                while k:
-                    acc = merge(acc, m[k - 1])
-                    k = link[e[k - 1]] & kb.LINK_NEXT
-                part[e[j]] = acc
+            order, runs = _tile_order(ed, t, kb)
+            s_e = torch.from_numpy(src[t, order]).long()
+            m = program.edge_map(values[s_e], ed.aux[s_e],
+                                 torch.from_numpy(w[t, order])).numpy()
+            for lo, hi, p in runs:  # a lane per run
+                part[p] = _chain(fold, ident, m[lo:hi])
     news = []
-    for r in slots:  # launch 2: the fold, one block per slot
+    for r in slots:  # the fold, after every tile
         base = r * c
         live = base + np.arange(c) < n_live
         keep = live & np.repeat(acts[r], sub)
         agg = np.full(c, ident, np.float32)
         for i in np.flatnonzero(keep):
-            for h in heads[hlo[base + i]:hhi[base + i]]:
-                agg[i] = merge(agg[i], part[h])
+            lo, hi = pspan[base + i]
+            agg[i] = _chain(fold, ident, part[lo:hi])
         old = values[base:base + c].clone()
         new = torch.where(torch.from_numpy(keep), program.apply(
             old, torch.from_numpy(agg), n_total), old)
@@ -116,22 +199,21 @@ def emulate_kernel(program, n_total, ed, values, rows, ok, psd, dmax, *,
 def emulate_lane_kernel(program, n_total, ed, values, vconst, rows, ok, psd,
                         dmax, lane_done, *, block_size, n_live, floor=None):
     """A one-pass lane sweep re-enacted in numpy the way the lane kernel of
-    csrc/block_sweep.cu runs it: one mask per slot from the lanes not done,
-    the tile pass walking each run's ``link`` chain per lane from its head,
-    the fold adding each vertex's partials through ``heads[hlo:hhi]`` lane
+    csrc/block_sweep.cu runs it, from the run table: one mask per slot from
+    the lanes not done, each tile's L messages per slot gathered in run
+    order, each (run, lane) stretch folded from the identity into the run's
+    partial, then each vertex's contiguous partials ``pspan[v]`` folded lane
     by lane. In place, like the kernel."""
     from repro_torch.kernels import block_sweep as kb
     c, lanes = block_size, values.shape[1]
     nsub = 1 if floor is None else int(ed.cov.shape[1])
     sub = c // nsub
     ident = np.float32(program.identity)
-    merge = {"sum": lambda a, b: (a + b).astype(np.float32),
-             "min": np.minimum, "max": np.maximum}[program.combine]
-    src = ed.src.numpy().reshape(-1)
-    w = ed.w.numpy().reshape(-1)
-    valid = ed.valid.numpy().reshape(-1)
-    link = ed.link.numpy().reshape(-1)
-    heads, hlo, hhi = ed.heads.numpy(), ed.hlo.numpy(), ed.hhi.numpy()
+    fold = {"sum": np.add, "min": np.minimum,
+            "max": np.maximum}[program.combine]
+    src = ed.src.numpy()
+    w = ed.w.numpy()
+    pspan = ed.pspan.numpy()
     cov = ed.cov.numpy()
     ts, tc = ed.tile_start.numpy(), ed.tile_cnt.numpy()
     psd3, dmax3 = psd.view(-1, nsub, lanes), dmax.view(-1, nsub, lanes)
@@ -140,23 +222,17 @@ def emulate_lane_kernel(program, n_total, ed, values, vconst, rows, ok, psd,
     acts = {r: (np.ones(1, bool) if floor is None else np.where(
         done, np.float32(0), psd3[r].numpy()).max(axis=-1)
         >= np.float32(floor)) for r in slots}
-    part = np.zeros((src.size, lanes), np.float32)
+    part = np.full((src.size, lanes), np.nan, np.float32)
     for r in slots:  # launch 1: the tile pass
         for t in range(ts[r], ts[r] + tc[r]):
             if floor is not None and not (cov[t] & acts[r]).any():
                 continue
-            e = t * kb.TILE + np.arange(kb.TILE)
-            s_e = torch.from_numpy(src[e]).long()
+            order, runs = _tile_order(ed, t, kb)
+            s_e = torch.from_numpy(src[t, order]).long()
             m = program.edge_map(values[s_e], ed.aux[s_e],
-                                 torch.from_numpy(w[e])).numpy()
-            for j in np.flatnonzero(valid[e] & ((link[e] & kb.LINK_HEAD)
-                                                > 0)):
-                acc = merge(np.full(lanes, ident), m[j])
-                k = link[e[j]] & kb.LINK_NEXT
-                while k:
-                    acc = merge(acc, m[k - 1])
-                    k = link[e[k - 1]] & kb.LINK_NEXT
-                part[e[j]] = acc
+                                 torch.from_numpy(w[t, order])).numpy()
+            for lo, hi, p in runs:
+                part[p] = _chain(fold, ident, m[lo:hi])
     news = []
     for r in slots:  # launch 2: the fold, one block per slot
         base = r * c
@@ -164,8 +240,8 @@ def emulate_lane_kernel(program, n_total, ed, values, vconst, rows, ok, psd,
         keep = live & np.repeat(acts[r], sub)
         agg = np.full((c, lanes), ident, np.float32)
         for i in np.flatnonzero(keep):
-            for h in heads[hlo[base + i]:hhi[base + i]]:
-                agg[i] = merge(agg[i], part[h])
+            lo, hi = pspan[base + i]
+            agg[i] = _chain(fold, ident, part[lo:hi])
         old = values[base:base + c].clone()
         new = torch.where(torch.from_numpy(keep)[:, None], program.apply(
             old, torch.from_numpy(agg), vconst[base:base + c], n_total), old)

@@ -151,6 +151,33 @@ def test_kernels_on_mutated_layout_match_plain(card, algo):
                 assert torch.equal(a, b), (algo, prog.combine, nsub)
 
 
+@pytest.mark.parametrize("s_sub", [1, 8])
+@pytest.mark.parametrize("prog", ["pagerank", "sssp", "cc"])
+def test_kernels_on_long_runs_and_hub_pass_match_plain(card, prog, s_sub):
+    """Kernels 1 (S = 1) and 1m (S = 8) against the plain version on a
+    hand-built layout (``_torch_parity.hub_edge_data``): tiles that are
+    one 512-slot run each, a hub destination of 1200 partials (the fold's
+    warp chain), and a block laid out as a stream leaves it; a one-slot
+    pass of the hub block at depth 1 and 3, and a slate of both blocks."""
+    from _torch_parity import hub_edge_data
+    rng = np.random.default_rng(7)
+    ed = hub_edge_data(s_sub, rng)
+    ed = type(ed)(*(t.cuda() for t in ed))
+    c = 64
+    values = rng.uniform(0.0, 1e-2, 2 * c).astype(np.float32)
+    psd0 = np.where(rng.random((2, s_sub)) < 0.6, 1.0, 0.0).astype(
+        np.float32)
+    psd0[0, 0] = 1.0  # the hub's sub-range is live
+    floor = np.float32(1e-3) if s_sub > 1 else None
+    for rows, depth in (([0], 1), ([0], 3), ([1, 0], 1)):
+        gpu, cpu = _slate_vs_plain(
+            A.REGISTRY[prog](), 2 * c - 5, ed, c, 2 * c - 5, values,
+            np.array(rows, np.int32), np.ones(len(rows), bool), psd0, floor,
+            depth)
+        for a, b in zip(gpu, cpu):
+            assert torch.equal(a, b), (prog, s_sub, rows, depth)
+
+
 @pytest.mark.parametrize("algo", ["pagerank", "sssp"])
 def test_stream_on_card_matches_cpu(card, algo):
     from repro_torch.stream import StreamingEngine, synthetic_stream

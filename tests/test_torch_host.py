@@ -104,12 +104,15 @@ def test_tiled_storage_slack_equal():
 
 
 def test_vertex_slots_cover_each_vertex():
-    """The fold's metadata reaches exactly each vertex's in-edge slots: the
-    runs walked from a vertex's heads, through the links, are its valid
-    slots, one run per tile in tile order. On the build-time (CSC) layout
-    a vertex's heads are its first slot and then the start of every later
-    tile it spans; a layout with each tile's destinations reversed (no
-    longer in destination order) is covered as well."""
+    """The sweep's run table reaches exactly each vertex's in-edge slots:
+    the runs whose partials ``pspan[v]`` names are v's valid slots, one run
+    per tile in tile order, each run a stretch of its tile's run order in
+    slot order, every run's partial inside its block's own slot range. On
+    the build-time (CSC) layout every tile is flagged sorted (run order is
+    slot order) and a vertex's runs start at its first slot and then at the
+    start of every later tile it spans; a layout with each tile's
+    destinations reversed (no longer in destination order, so no tile with
+    more than one run is sorted) is covered as well."""
     from repro_torch.kernels import block_sweep as kb
     _, tg = _pair("core_periphery")
     plan = TP.build_plan(tg, block_size=64)
@@ -122,38 +125,54 @@ def test_vertex_slots_cover_each_vertex():
                           edges=u.edges)
     block_of_tile = np.repeat(np.arange(plan.num_blocks), u.tile_cnt)
     for store in (u, bad):
-        link, heads, hlo, hhi = (t.numpy() for t in kb.fold_metadata(
+        rslot, tinfo, runs, pspan = (t.numpy() for t in kb.fold_metadata(
             *(torch.as_tensor(a) for a in (
                 store.dst_local, store.valid, store.tile_start,
                 store.tile_cnt)), 64, n_pad))
-        link = link.reshape(-1)
-        dst = (block_of_tile[:, None] * 64 + store.dst_local).reshape(-1)
-        valid = store.valid.reshape(-1)
-        walked = np.zeros(valid.size, int)
+        dst = block_of_tile[:, None] * 64 + store.dst_local
+        run_of = {}  # partial -> (tile, its slots in run order)
+        for r in range(dst.shape[0]):
+            nv = tinfo[r] & kb.TINFO_COUNT
+            nr = (tinfo[r] >> kb.TINFO_RUNS) & kb.TINFO_COUNT
+            order = rslot[r, :nv].astype(np.int64)
+            assert sorted(order) == np.flatnonzero(store.valid[r]).tolist()
+            assert bool(tinfo[r] & kb.TINFO_SORTED) == \
+                (order == np.arange(nv)).all()
+            first = runs[r * TP.TILE:r * TP.TILE + nr]
+            assert first[0, 0] == 0 if nr else nv == 0
+            for (lo, p), hi in zip(first, np.append(first[1:, 0], nv)):
+                assert lo < hi and p not in run_of
+                run_of[p] = (r, order[lo:hi])
+        walked = np.zeros(store.valid.shape, int)
         for v in range(n_pad):
-            hs = heads[hlo[v]:hhi[v]]
-            assert np.all(np.diff(hs // TP.TILE) > 0)  # one run per tile
-            for h in hs:
-                assert link[h] & kb.LINK_HEAD
-                e = h
-                while True:
-                    assert valid[e] and dst[e] == v
-                    walked[e] += 1
-                    k = link[e] & kb.LINK_NEXT
-                    if not k:
-                        break
-                    assert k - 1 > e % TP.TILE  # forward, in slot order
-                    e = e - e % TP.TILE + k - 1
-        assert np.array_equal(walked, valid.astype(int))
-        assert np.bincount(dst[valid], minlength=n_pad).tolist() == \
+            lo, hi = pspan[v]
+            area = u.tile_start[v // 64] * TP.TILE
+            assert area <= lo <= hi <= area + u.tile_cnt[v // 64] * TP.TILE
+            tiles = [run_of[p][0] for p in range(lo, hi)]
+            assert np.all(np.diff(tiles) > 0)  # one run per tile, in order
+            for p in range(lo, hi):
+                r, slots = run_of[p]
+                assert np.all(np.diff(slots) > 0)  # slot order
+                assert np.all(store.valid[r, slots])
+                assert np.all(dst[r, slots] == v)
+                walked[r, slots] += 1
+        assert len(run_of) == sum(pspan[:, 1] - pspan[:, 0])
+        assert np.array_equal(walked, store.valid.astype(int))
+        assert np.bincount(dst[store.valid], minlength=n_pad).tolist() == \
             indeg.tolist()
         if store is u:
+            assert np.all(tinfo & kb.TINFO_SORTED)
             for v in np.flatnonzero(indeg)[::37]:
-                s0 = int(np.flatnonzero(valid & (dst == v))[0])
-                last = int(np.flatnonzero(valid & (dst == v))[-1])
-                want = [s0] + list(range((s0 // TP.TILE + 1) * TP.TILE,
-                                         last + 1, TP.TILE))
-                assert heads[hlo[v]:hhi[v]].tolist() == want
+                flat = np.flatnonzero((store.valid & (dst == v)).ravel())
+                want = [int(flat[0])] + list(range(
+                    (flat[0] // TP.TILE + 1) * TP.TILE, flat[-1] + 1,
+                    TP.TILE))
+                got = [run_of[p][0] * TP.TILE + int(run_of[p][1][0])
+                       for p in range(*pspan[v])]
+                assert got == want
+        else:
+            nruns = (tinfo >> kb.TINFO_RUNS) & kb.TINFO_COUNT
+            assert not np.any((tinfo & kb.TINFO_SORTED) & (nruns > 1))
 
 
 def test_repartition_decisions_equal():

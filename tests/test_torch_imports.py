@@ -65,11 +65,15 @@ def test_kernel_tile_is_the_layout_tile():
     assert KERNEL_TILE == TILE and f"#define TILE {TILE}" in src
 
 
-def test_kernel_link_bits_are_the_source_bits():
+def test_kernel_table_bits_are_the_source_bits():
     from repro_torch.kernels import block_sweep as kb
     src = (PKG / "csrc" / "block_sweep.cu").read_text()
-    assert f"#define LINK_NEXT {kb.LINK_NEXT:#x}" in src
-    assert f"#define LINK_HEAD {kb.LINK_HEAD:#x}" in src
+    assert f"#define TINFO_RUNS {kb.TINFO_RUNS}" in src
+    assert f"#define TINFO_COUNT {kb.TINFO_COUNT:#x}" in src
+    assert f"#define TINFO_SORTED {kb.TINFO_SORTED:#x}" in src
+    assert kb.TINFO_COUNT >= kb.TILE and kb.TILE <= 1 << kb.TINFO_RUNS
+    assert f"#define SWEEP_WARPS {kb.SWEEP_WARPS}" in src
+    assert f"#define MAX_SUB {kb.MAX_SUB}" in src
     assert f"#define MAX_SLOTS {kb.MAX_SLOTS}" in src
     assert f"#define MAX_BLOCK {kb.MAX_BLOCK}" in src
     assert f"#define MAX_LANES {kb.MAX_LANES}" in src

@@ -11,7 +11,17 @@ redrawn here as seeded normals at scale (Hq * Dh)^-0.5, and one test shows
 that attention then reaches the logits. The bar (ROADMAP fact 4):
 
 * logits at the reduced config's bf16: rtol=atol=5e-2 (the reference's own
-  tolerance, ``tests/test_models.py``); with ``dtype="float32"``: 1e-4;
+  tolerance, ``tests/test_models.py``); with ``dtype="float32"``: 1e-4. In
+  bf16 ``forward`` and serving are held against two executions of the
+  reference: compiled, as the JAX package runs it, and op by op
+  (``jax.disable_jit``), each op rounding to bf16 as written, which is what
+  the port does. Compiled, XLA fuses elementwise chains and skips some of
+  those roundings: at the reduced hymba_1p5b its compiled logits are 0.066
+  from its own op-by-op ones, against 0.0195 from the port's, so there
+  (``SPREAD``) the compiled check's atol is widened by the reference's own
+  spread between its two executions, measured on the same inputs
+  (llama3p2_1b, qwen3_14b and mamba2_2p7b: the port is bitwise the
+  op-by-op reference);
 * ``forward`` on the plain route, ``forward(use_kernel=True)`` at S = 128
   against the reference's ``use_pallas=True`` (Pallas in interpret mode;
   the reference's SSM has no kernel route, so the port's kernel-5 route is
@@ -20,6 +30,7 @@ that attention then reaches the logits. The bar (ROADMAP fact 4):
   decode against ``forward``;
 * exact head padding (qwen3_14b): padded logits equal unpadded bitwise.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -44,6 +55,33 @@ OTHERS = ["deepseek_moe_16b", "granite_moe_3b_a800m", "phi3_vision_4p2b",
           "whisper_base"]
 TOL = {"bfloat16": dict(rtol=5e-2, atol=5e-2),
        "float32": dict(rtol=1e-4, atol=1e-4)}
+
+
+# archs whose compiled bf16 reference is held at the bar widened by its
+# spread from the op-by-op reference (see the module note)
+SPREAD = {"hymba_1p5b"}
+
+
+def _executions(dtype):
+    """The reference's executions that a parity check at ``dtype`` holds
+    the port against, as (label, context): compiled, and in bf16 also op
+    by op (see the module note)."""
+    runs = [("compiled", contextlib.nullcontext)]
+    if dtype == "bfloat16":
+        runs.append(("op by op", jax.disable_jit))
+    return runs
+
+
+def _assert_close(name, dtype, got, refs):
+    """``got`` within ``TOL[dtype]`` of each execution's value in ``refs``
+    (label -> value); for an arch of ``SPREAD`` the compiled one's atol
+    is widened by the largest gap between the two executions' values."""
+    for label, want in refs.items():
+        tol = dict(TOL[dtype])
+        if label == "compiled" and name in SPREAD and len(refs) > 1:
+            tol["atol"] += float(np.abs(_np(refs["op by op"])
+                                        - _np(want)).max())
+        np.testing.assert_allclose(_np(got), _np(want), err_msg=label, **tol)
 
 
 def _cfg(name, dtype="bfloat16", **kw):
@@ -95,13 +133,17 @@ def test_forward_matches_reference(name, dtype):
     cfg = _cfg(name, dtype)
     jp, tp = _both(cfg, _tree(cfg))
     tok = _tokens(cfg)
-    want, _ = JM.forward(jp, cfg, {"tokens": jnp.asarray(tok)}, remat=False)
+    want = {}
+    for label, run in _executions(dtype):
+        with run():
+            want[label], _ = JM.forward(jp, cfg, {"tokens": jnp.asarray(tok)},
+                                        remat=False)
     got, aux = TM.forward(tp, _port_cfg(cfg),
                           {"tokens": torch.from_numpy(tok)})
     assert got.shape == (2, 32, cfg.vocab_padded)
     assert got.dtype == getattr(torch, dtype)
     assert float(aux["lb_loss"]) == 0.0
-    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    _assert_close(name, dtype, got, want)
 
 
 @pytest.mark.parametrize("name", MODELS)
@@ -130,24 +172,34 @@ def test_serving_matches_reference(name, dtype):
     jp, tp = _both(cfg, _tree(cfg))
     tok = _tokens(cfg)
     half, s = 16, 32
-    jc = JM.init_cache(cfg, 2, s)
+    runs = _executions(dtype)
+    jc = {label: JM.init_cache(cfg, 2, s) for label, _ in runs}
+    jl = {}
     tc = TM.init_cache(pcfg, 2, s, device="cpu")
-    jl, jc = JM.prefill(jp, cfg, {"tokens": jnp.asarray(tok[:, :half])}, jc)
+    for label, run in runs:
+        with run():
+            jl[label], jc[label] = JM.prefill(
+                jp, cfg, {"tokens": jnp.asarray(tok[:, :half])}, jc[label])
     tl, tc = TM.prefill(tp, pcfg, {"tokens": torch.from_numpy(tok[:, :half])},
                         tc)
-    np.testing.assert_allclose(_np(tl), _np(jl), **TOL[dtype])
+    _assert_close(name, dtype, tl, jl)
     decode = jax.jit(lambda p, x, c: JM.decode_step(p, cfg, x, c))
     for t in range(half, s):
-        jl, jc = decode(jp, jnp.asarray(tok[:, t:t + 1]), jc)
+        for label, run in runs:
+            with run():
+                jl[label], jc[label] = decode(
+                    jp, jnp.asarray(tok[:, t:t + 1]), jc[label])
         tl, tc = TM.decode_step(tp, pcfg, torch.from_numpy(tok[:, t:t + 1]),
                                 tc)
-        np.testing.assert_allclose(_np(tl), _np(jl), **TOL[dtype])
-    assert tc["pos"] == int(jc["pos"]) == s
-    assert set(tc) == set(jc)
+        _assert_close(name, dtype, tl, jl)
+    for label, _ in runs:
+        assert tc["pos"] == int(jc[label]["pos"]) == s
+        assert set(tc) == set(jc[label])
     for key in set(tc) - {"pos"}:
         assert tc[key].dtype == (torch.float32 if key == "ssm_state"
                                  else getattr(torch, dtype)), key
-        np.testing.assert_allclose(_np(tc[key]), _np(jc[key]), **TOL[dtype])
+        _assert_close(name, dtype, tc[key],
+                      {label: jc[label][key] for label, _ in runs})
 
 
 @pytest.mark.parametrize("name", MODELS)
@@ -375,6 +427,48 @@ def test_other_families_raise(name):
              lambda: TM.decode_step(None, cfg, tok["tokens"], {})]
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            call()
+
+
+def test_swiglu_matches_reference_bitwise():
+    """The dense SwiGLU in bf16 is bit for bit the reference's. One-hot
+    gate, up and down weights make every matrix product exact (one product
+    of a bf16 value and 1, the rest zeros), so what is left to differ is
+    the elementwise order: the reference's SiLU rounds to bf16 after every
+    op, where ``F.silu`` rounds once (an ulp apart on about a third of bf16
+    inputs)."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TL
+    rng = np.random.default_rng(21)
+    d, f = 64, 256
+
+    def one_hot(k, n):
+        m = np.zeros((k, n), np.float32)
+        m[rng.integers(0, k, n), np.arange(n)] = 1.0
+        return m
+
+    arrays = (rng.normal(0.0, 3.0, (2, 16, d)).astype(np.float32),
+              one_hot(d, f), one_hot(d, f), one_hot(f, d))
+    want = JL.swiglu(*(jnp.asarray(a, jnp.bfloat16) for a in arrays))
+    got = TL.swiglu(*(torch.from_numpy(a).to(torch.bfloat16)
+                      for a in arrays))
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(np.asarray(want.astype(jnp.float32)),
+                          got.float().numpy())
+
+
+def test_cast_weights_once_raises():
+    """``cast_weights_once`` is refused, not accepted and ignored: every
+    entry point that takes the config raises on it."""
+    cfg = dataclasses.replace(TC.reduced(TC.get("llama3p2_1b")),
+                              cast_weights_once=True)
+    tok = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
+    for call in (lambda: TM.init_params(cfg, torch.Generator()),
+                 lambda: TM.init_cache(cfg, 1, 8, device="cpu"),
+                 lambda: TM.forward(None, cfg, tok),
+                 lambda: TM.prefill(None, cfg, tok, {}),
+                 lambda: TM.decode_step(None, cfg, tok["tokens"], {})):
+        with pytest.raises(NotImplementedError, match="cast_weights_once"):
             call()
 
 

@@ -182,8 +182,8 @@ def test_sweeps_on_mutated_layouts(algo, s):
     runs rebuilt in bucket order), every block's one-pass plain sweep
     equals the per-destination oracle (bitwise: the oracle adds in the same
     order), the kernel's re-enacted order equals the plain sweep bitwise,
-    masked and unmasked, and the fold metadata the commits refreshed equals
-    metadata derived afresh from the mutated tiles."""
+    masked and unmasked, and the run table the commits refreshed equals
+    one derived afresh from the mutated tiles."""
     g = TG.powerlaw_graph(900, avg_deg=5, seed=7)
     se = StreamingEngine(g, TA.REGISTRY[algo](), TConfig(**KW, subblocks=s),
                          device="cpu")
@@ -198,7 +198,7 @@ def test_sweeps_on_mutated_layouts(algo, s):
     ed, c, P = eng.edge_state, eng.plan.block_size, eng.plan.num_blocks
     fresh = kb.fold_metadata(ed.dstl, ed.valid, ed.tile_start, ed.tile_cnt,
                              c, eng._values_len)
-    for got, want in zip((ed.link, ed.heads, ed.hlo, ed.hhi), fresh):
+    for got, want in zip((ed.rslot, ed.tinfo, ed.runs, ed.pspan), fresh):
         assert torch.equal(got, want)
     rng = np.random.default_rng(3)
     values = torch.from_numpy(rng.uniform(0.0, 1e-3, eng._values_len)
