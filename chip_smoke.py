@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --segment-repeats N  # phase 6a's times, N times
-    python3 chip_smoke.py --sweep-profile  # kernels 1/1m's shapes alone
+    python3 chip_smoke.py --sweep-profile  # kernels 1/1m/1l/1lm's shapes alone
 
 Phases (any failed check exits non-zero; nothing is caught and passed over):
 
@@ -35,7 +35,12 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       plain version on CPU copies (its sum order is the CPU's index_add_).
       1lm runs over S = 8 coverage with seeded (P, S, L) psd and two lanes
       done. A one-lane k_sssp sweep must equal kernel 1's sssp sweep
-      bitwise.
+      bitwise. Then the lane shapes of the serving path, from a generator
+      of their own (LANE_SEED): for k_sssp on the SSSP graph and k_ppr on
+      the PageRank graph at L = 8, a one-slot pass of the hub block and a
+      WIDTH-slot cold slate through 1l, and through 1lm with a 1/S-live
+      mask (the tiles it needs printed): CUDA events and the device time by
+      kernel.
    e. Kernels 1 and 1m at the main path's shapes on both graphs, from a
       generator of its own (SWEEP_SEED): the tiles' statistics (runs per
       tile, the longest run per tile and the share of slots in runs longer
@@ -254,6 +259,7 @@ SEG_UNSORTED_E = 1 << 20  # phase 6a's synthetic unsorted row
 COLD_PASSES = 7  # phase 6a: cold passes timed, kernel and library each
 SEED = 0
 SWEEP_SEED = 90  # phase 2e's own generator: its draws shift no earlier one's
+LANE_SEED = 91  # phase 2d's lane shapes: their own generator, likewise
 WINDOW = 100  # phase 3's windows: supersteps from the start of a run
 WINDOWS = 3  # windows timed, and as many profiled
 DEV = "cuda"
@@ -536,11 +542,10 @@ def sweep_row_stats(label, ed, c, hub, live=None):
     per destination (largest, and the distribution). With ``live`` ((P,
     S) bool, a masked slate's sub-ranges), the tiles the masked sweep
     needs (coverage meets a live sub-range) against every tile."""
-    import numpy as np
     import torch
     P = ed.tile_cnt.numel()
     cnt = ed.tile_cnt.long()
-    block_of_tile = torch.repeat_interleave(torch.arange(P, device=DEV), cnt)
+    every, block_of_tile = slate_tiles(ed, torch.arange(P, device=DEV))
     first = int(ed.tile_start[hub])
     for what, t0, t1 in (("all tiles", 0, ed.valid.shape[0]),
                          (f"hub block {hub}", first,
@@ -574,7 +579,7 @@ def sweep_row_stats(label, ed, c, hub, live=None):
             f"{[int((parts > t).sum()) for t in (64, 256, 1024, 4096)]}")
     if live is not None:
         live = torch.as_tensor(live).to(DEV)
-        need = (ed.cov & live[block_of_tile]).any(dim=1)
+        need = needed_tiles(ed, every, live[block_of_tile])
         log(f"[kernel] {label} masked slate of every block, "
             f"{float(live.double().mean())!r} of the sub-ranges live: "
             f"{int(need.sum())} tiles needed of {need.numel()} (a masked "
@@ -582,13 +587,75 @@ def sweep_row_stats(label, ed, c, hub, live=None):
             f"{int(ed.valid[need].sum())} needed slots")
 
 
+def slate_tiles(ed, rows):
+    """The tiles of blocks ``rows`` (a long tensor on the card) in slate
+    order, and the index in ``rows`` of each one's block."""
+    import torch
+    cnt = ed.tile_cnt[rows].long()
+    slot = torch.repeat_interleave(torch.arange(rows.numel(), device=DEV),
+                                   cnt)
+    first = torch.cumsum(cnt, 0) - cnt
+    tiles = ed.tile_start[rows].long()[slot] + (
+        torch.arange(int(cnt.sum()), device=DEV) - first[slot])
+    return tiles, slot
+
+
+def needed_tiles(ed, tiles, live):
+    """Which of ``tiles`` a masked sweep needs: the tile's coverage meets a
+    live sub-range of its block (``live``: (len(tiles), S) bool)."""
+    return (ed.cov[tiles] & live).any(dim=1)
+
+
+def hub_and_slate(sa, rng):
+    """The block of ``sa``'s graph with the most tiles, and WIDTH other
+    blocks drawn from ``rng`` (sorted): the one-slot pass and the cold slate
+    that the shape timings take."""
+    import numpy as np
+    P = sa.plan.num_blocks
+    hub = int(np.argmax(sa.plan.unified.tile_cnt))
+    slate = sorted(int(b) for b in rng.choice(
+        np.setdiff1d(np.arange(P), [hub]), WIDTH, replace=False))
+    return hub, slate
+
+
+def time_shapes(label, ed, hub, slate, call, live=None):
+    """Phases 2d and 2e: a kernel at the shapes its path launches, a
+    one-slot pass of the hub block (a hot slot's pass) and the cold slate
+    ``slate``; ``call(rows, ok)`` gives the function that makes one call
+    (rows and ok on the card). CUDA events over 20 calls, the device time by
+    kernel of three calls, and with ``live`` ((P, S) bool on the card: the
+    mask of a masked form) the tiles that the mask needs. Returns
+    {"hub": ms, "slate": ms}."""
+    import torch
+    out = {}
+    for what, rows in (("hub", [hub]), ("slate", slate)):
+        r = torch.tensor(rows, dtype=torch.int32, device=DEV)
+        run = call(r, torch.ones(r.numel(), dtype=torch.bool, device=DEV))
+        ms = cuda_ms(run, 20)
+        tiles, slot = slate_tiles(ed, r.long())
+        need = ""
+        if live is not None:
+            keep = needed_tiles(ed, tiles, live[r.long()][slot])
+            need = (f", {int(keep.sum())} tiles needed "
+                    f"({int(ed.valid[tiles[keep]].sum())} slots)")
+        # three calls: a window's first kernel is sometimes missing from
+        # the profiler's key_averages()
+        prof = profile_kernels(lambda: [run() for _ in range(3)])
+        shape = ("one-slot pass of hub block" if what == "hub"
+                 else f"{len(rows)}-slot cold slate")
+        log(f"[kernel] {label}, {shape} ({tiles.numel()} tiles, "
+            f"{int(ed.valid[tiles].sum())} slots{need}): {ms!r} ms; device "
+            f"time by kernel (torch.profiler, three calls): "
+            f"{describe_profile(prof)}")
+        out[what] = ms
+    return out
+
+
 def time_sweep_shapes(label, program, ed, c, n_live, n_total, values0, hub,
                       slate):
-    """Phase 2e: kernel 1 at the shapes the main path launches: a one-slot
-    pass of the hub block (a hot slot's pass) and a cold slate of
-    ``slate`` blocks, each into a second buffer so that every run reads the
-    same values: CUDA events over 20 calls, and the device time by kernel
-    of three calls."""
+    """Phase 2e: kernel 1 at the shapes the main path launches
+    (``time_shapes``), each call into a second buffer so that every run
+    reads the same values."""
     import torch
     from repro_torch.kernels import block_sweep as kb
     P = ed.tile_cnt.numel()
@@ -597,23 +664,13 @@ def time_sweep_shapes(label, program, ed, c, n_live, n_total, values0, hub,
     psd = torch.zeros(P, 1, device=DEV)
     dmax = torch.zeros(P, 1, device=DEV)
     sc = kb.make_scratch(ed, c)
-    for what, rows in (("one-slot pass of hub block", [hub]),
-                       (f"{len(slate)}-slot cold slate", slate)):
-        r = torch.tensor(rows, dtype=torch.int32, device=DEV)
-        ok = torch.ones(r.numel(), dtype=torch.bool, device=DEV)
 
-        def run():
-            kb.block_sweep(program, n_total, ed, values, r, ok, psd, dmax,
-                           sc, block_size=c, n_live=n_live, out=out)
+    def call(r, ok):
+        return lambda: kb.block_sweep(program, n_total, ed, values, r, ok,
+                                      psd, dmax, sc, block_size=c,
+                                      n_live=n_live, out=out)
 
-        ms = cuda_ms(run, 20)
-        tiles = int(ed.tile_cnt[r.long()].sum())
-        # three calls: a window's first kernel is sometimes missing from
-        # the profiler's key_averages()
-        prof = profile_kernels(lambda: [run() for _ in range(3)])
-        log(f"[kernel] {label} kernel 1, {what} ({tiles} tiles): {ms!r} ms; "
-            f"device time by kernel (torch.profiler, three calls): "
-            f"{describe_profile(prof)}")
+    return time_shapes(f"{label} kernel 1", ed, hub, slate, call)
 
 
 def sweep_shapes_phase(engines, times, srng, pagerank_full=False):
@@ -627,15 +684,14 @@ def sweep_shapes_phase(engines, times, srng, pagerank_full=False):
     for name, (sa, _) in engines.items():
         c, n_live, n_total = BLOCK, sa.plan.n_live, sa.plan.graph.n
         P = sa.plan.num_blocks
-        hub = int(np.argmax(sa.plan.unified.tile_cnt))
         floor = np.float32(sa._psd_floor())
-        slate = sorted(int(b) for b in srng.choice(
-            np.setdiff1d(np.arange(P), [hub]), WIDTH, replace=False))
+        hub, slate = hub_and_slate(sa, srng)
         psd8 = sub_mask_psd(srng, P, SUB, floor, 1.0 / SUB)
         ed8 = masked_tiles(sa, SUB)
         sweep_row_stats(name, ed8, c, hub, live=psd8 >= floor)
-        time_sweep_shapes(name, sa.program, sa.edge_state, c, n_live,
-                          n_total, sa.values0, hub, slate)
+        times[("1 shapes", name)] = time_sweep_shapes(
+            name, sa.program, sa.edge_state, c, n_live, n_total, sa.values0,
+            hub, slate)
         if name == "sssp" or pagerank_full:
             key = "full" if name == "pagerank" else name
             times[key] = time_full_sweep(
@@ -926,6 +982,85 @@ def time_lane_sweep(label, program, ed, c, n_live, n_total, values0,
         f"gather per edge slot {gather_ms!r} ms)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms)
+
+
+def time_lane_shapes(label, program, ed, c, n_live, n_total, values0,
+                     vconst, hub, slate, floor=None, psd0=None):
+    """Phase 2d: a lane kernel at the shapes the serving path launches, at
+    L = LANES (``time_shapes``), unmasked (1l), or with ``psd0``'s mask
+    (1lm, no lane done; each call starts from it)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import block_sweep as kb
+    P = ed.tile_cnt.numel()
+    L = values0.shape[1]
+    masked = floor is not None
+    values = torch.as_tensor(values0).to(DEV)
+    vc = torch.as_tensor(vconst).to(DEV)
+    p0 = torch.as_tensor(psd0 if masked else np.zeros((P, 1, L), np.float32)
+                         ).to(DEV)
+    psd = p0.clone()
+    dmax = torch.zeros_like(p0)
+    ld = torch.zeros(L, dtype=torch.bool, device=DEV)
+    sc = kb.make_lane_scratch(ed, c, L)
+
+    def call(r, ok):
+        def run():
+            psd.copy_(p0)
+            lane_sweep(program, n_total, ed, values, vc, r, ok, psd, dmax,
+                       ld, sc, floor=floor, block_size=c, n_live=n_live)
+        return run
+
+    return time_shapes(label, ed, hub, slate, call,
+                       live=p0.amax(dim=-1) >= floor if masked else None)
+
+
+def lane_shapes_phase(engines, times, lrng, full=False):
+    """Phase 2d's lane shapes: kernels 1l and 1lm at L = LANES where the
+    serving path launches them, k_sssp on the SSSP graph and k_ppr on the
+    PageRank graph (``time_lane_shapes``: a one-slot pass of the hub block
+    and a WIDTH-slot cold slate; 1lm at S = SUB with a 1/S-live mask); with
+    ``full`` also the full cold lane sweeps of 1l and of 1lm all live and
+    1/S live, with the library yardstick and no plain version. Its draws
+    come from ``lrng`` alone."""
+    import numpy as np
+    from repro_torch.core import algorithms as A
+    for name, prog in (("sssp", A.k_source_sssp()),
+                       ("pagerank", A.k_personalized_pagerank())):
+        sa = engines[name][0]
+        c, n_live, n_total = BLOCK, sa.plan.n_live, sa.plan.graph.n
+        P = sa.plan.num_blocks
+        floor = np.float32(sa._psd_floor())
+        hub, slate = hub_and_slate(sa, lrng)
+        values, vconst = lane_state(prog, sa._values_len, lrng)
+        ed8 = masked_tiles(sa, SUB)
+        label = f"{prog.name} on the {name} graph"
+
+        def lane_psd(frac):
+            return np.repeat(sub_mask_psd(lrng, P, SUB, floor, frac)
+                             [:, :, None], LANES, axis=2)
+
+        # both masks drawn with or without ``full``, so that the smoke and
+        # --sweep-profile time the same shapes
+        eighth, live = lane_psd(1.0 / SUB), lane_psd(1.0)
+        times[("1l shapes", name)] = time_lane_shapes(
+            f"{label} kernel 1l", prog, sa.edge_state, c, n_live, n_total,
+            values, vconst, hub, slate)
+        times[("1lm shapes", name)] = time_lane_shapes(
+            f"{label} kernel 1lm S={SUB}, live fraction 1/{SUB}", prog, ed8,
+            c, n_live, n_total, values, vconst, hub, slate, floor=floor,
+            psd0=eighth)
+        if full:
+            times[("1l full", name)] = time_lane_sweep(
+                f"{label} kernel 1l", prog, sa.edge_state, c, n_live,
+                n_total, values, vconst, plain=False)
+            for frac, psd0 in ((1.0, live), (1.0 / SUB, eighth)):
+                times[("1lm full", name, frac)] = time_lane_sweep(
+                    f"{label} kernel 1lm S={SUB}, live fraction {frac!r}",
+                    prog, ed8, c, n_live, n_total, values, vconst,
+                    floor=floor, lane_done=np.zeros(LANES, bool), psd0=psd0,
+                    plain=False)
+        del ed8
 
 
 def bellman_ford(g, sources, unit=False):
@@ -1717,12 +1852,14 @@ def main_path_engines(baseline: bool):
 
 
 def sweep_profile() -> int:
-    """``--sweep-profile``: kernels 1 and 1m alone, in one process: it
-    builds the sweep kernel and phase 3's graphs and engines, runs phase
-    2e on both graphs (the PageRank graph's full sweeps too) and phase 3's
-    superstep windows, and prints the readings as one JSON line. No
-    checks against the plain version and no result line: the smoke run
-    is the one without arguments."""
+    """``--sweep-profile``: kernels 1, 1m, 1l and 1lm alone, in one
+    process: it builds the sweep kernel and phase 3's graphs and engines,
+    runs phase 2e on both graphs (the PageRank graph's full sweeps too),
+    phase 2d's lane shapes with the full lane sweeps (``lane_shapes_phase``)
+    and phase 3's superstep windows, and prints the readings as one JSON
+    line. It uses the wrappers' public calls alone, so a copy of it times a
+    parent tree's kernels too. No checks against the plain version and no
+    result line: the smoke run is the one without arguments."""
     import numpy as np
     import torch
     from repro_torch.kernels import _build
@@ -1734,6 +1871,8 @@ def sweep_profile() -> int:
     times = {}
     sweep_shapes_phase(engines, times, np.random.default_rng(SWEEP_SEED),
                        pagerank_full=True)
+    lane_shapes_phase(engines, times, np.random.default_rng(LANE_SEED),
+                      full=True)
     windows = {name: superstep_windows(f"{name} structure-aware", sa)
                for name, (sa, _) in engines.items()}
     log(f"[done] in {time.perf_counter() - t0:.1f} s")
@@ -2417,6 +2556,8 @@ def main() -> int:
                 "to kernel 1's sssp sweep (values, psd, dmax)")
             del lv, lp, ld, sv, sp, sd, rows, ok
         del ed8
+    # the lane shapes of the serving path, from a generator of their own
+    lane_shapes_phase(engines, times, np.random.default_rng(LANE_SEED))
 
     # -- phase 3: the main path ----------------------------------------------
     log(f"[time] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
@@ -2588,6 +2729,7 @@ def main() -> int:
     # -- phase 7: the kernels line, the card, and the result -----------------
     t, tm = times["pagerank"], times[("pagerank", 1.0)]
     tl, tlm = times["1l"], times[("1lm", 1.0)]
+    shl, shlm = times[("1l shapes", "sssp")], times[("1lm shapes", "sssp")]
     rows = [
         dict(name="block_sweep", route="cuda",
              source="src/repro_torch/csrc/block_sweep.cu",
@@ -2608,14 +2750,18 @@ def main() -> int:
              replaces="src/repro/kernels/block_sweep.py:136",
              launches=lane_launches, max_abs_err=max(errs["1l"]),
              ms=tl["ms"], plain_ms=tl["plain_ms"], bound_ms=tl["bound_ms"],
-             bound_by="bytes", library_ms=tl["library_ms"]),
+             bound_by="bytes", library_ms=tl["library_ms"],
+             hub_ms=shl["hub"], slate_ms=shl["slate"]),
         dict(name="masked_lane_block_sweep", route="cuda",
              source="src/repro_torch/csrc/block_sweep.cu",
              replaces="src/repro/kernels/block_sweep.py:150",
              launches=masked_lane_launches, max_abs_err=max(errs["1lm"]),
              ms=tlm["ms"], plain_ms=tlm["plain_ms"],
              bound_ms=tlm["bound_ms"], bound_by="bytes",
-             library_ms=tlm["library_ms"]),
+             library_ms=tlm["library_ms"],
+             **{f"eighth_{k}": v for k, v in
+                times[("1lm", 1.0 / SUB)].items() if k != "plain_ms"},
+             eighth_hub_ms=shlm["hub"], eighth_slate_ms=shlm["slate"]),
     ] + [dict(name=f"edge_block_{op}", route="cuda",
               source="src/repro_torch/csrc/segment_combine.cu",
               replaces=("src/repro/kernels/spmv.py:25" if op == "sum" else

@@ -616,7 +616,7 @@ class StructureAwareEngine:
         """(hot_sweep, cold_sweep) over a (width,) slate, both in place on
         (values, psd, dmax). Hot slots run one after another, slot i with
         its rank's inner depth, so slot i+1 sees slot i's writes; the cold
-        slate is one launch pair reading one snapshot."""
+        slate is one launch reading one snapshot."""
         if width in self._sweep_fns:
             return self._sweep_fns[width]
         depths = self._inner_depths(width).tolist()

@@ -40,11 +40,15 @@ streaming commit path refreshes it for the blocks it touches
 kills and runs rebuilt in any order are all swept in the order the plain
 version defines.
 
-The wrappers launch the kernel for tensors on a CUDA device and run
-their plain version (:func:`block_sweep_ref`, :func:`lane_block_sweep_ref`)
-for tensors on the CPU; there is no other path. Each wrapper's
-``launches`` counts its calls that launched the kernel (one launch for
-kernels 1 and 1m, a launch pair for 1l and 1lm).
+The lane kernels have the same shape (one launch per call; the fold
+behind the counter or the grid barrier): a warp per tile gathers the value
+rows coalesced in chunks of :func:`lane_shape`'s positions, carrying each
+run's partial across a chunk's end, and the fold runs the lanes of a
+destination side by side. The wrappers launch the kernel for tensors on a
+CUDA device and run their plain version (:func:`block_sweep_ref`,
+:func:`lane_block_sweep_ref`) for tensors on the CPU; there is no other
+path. Each wrapper's ``launches`` counts its calls, each one launch of the
+kernel.
 """
 from __future__ import annotations
 
@@ -63,7 +67,13 @@ MAX_BLOCK = 1024  # csrc/block_sweep.cu: vertices per block
 MAX_LANES = 32  # csrc/block_sweep.cu: lanes of one lane sweep
 MAX_SUB = 32  # csrc/block_sweep.cu: sub-ranges a masked sweep tests at once
 SWEEP_WARPS = 8  # csrc/block_sweep.cu: warps (tiles in flight) per block
-LANE_CTAS_PER_SM = 4  # 512-thread lane tile-pass blocks resident per SM
+LANE_WARPS = 8  # csrc/block_sweep.cu: the same for the lane kernel
+LONG_SPAN = 64  # csrc/block_sweep.cu: longer partial chains fold on a warp
+LANE_MSG = 1152  # csrc/block_sweep.cu: floats of a lane warp's chunk buffer
+LANE_GATHER = 8  # csrc/block_sweep.cu: value-row loads a lane thread issues
+LONG_FLOATS = 1024  # csrc/block_sweep.cu: a lane warp's long-chain stage
+LANE_TREES = LANE_WARPS * (2 * TILE + LANE_MSG + 2 * MAX_LANES
+                            - LONG_FLOATS)  # the floats left to the trees
 TINFO_RUNS = 10  # csrc/block_sweep.cu: tinfo = nv | nr << TINFO_RUNS ...
 TINFO_COUNT = 0x3FF
 TINFO_SORTED = 0x100000  # ... | TINFO_SORTED where run order is slot order
@@ -82,13 +92,13 @@ class _SweepTiles(ctypes.Structure):
                 ("ncov", ctypes.c_int)]
 
 
-def _pack(ed, c, part, old, sync=None) -> _SweepTiles:
-    """The packed pointers of ``ed`` and a scratch's buffers (a lane
-    scratch has no ``sync``, and the lane kernels take aux per call)."""
+def _pack(ed, c, part, old, sync) -> _SweepTiles:
+    """The packed pointers of ``ed`` and a scratch's buffers (the lane
+    kernels take aux per call)."""
     return _SweepTiles(*(t.data_ptr() for t in (
         ed.src, ed.w, ed.aux, ed.rslot, ed.tinfo, ed.runs, ed.pspan,
-        ed.tile_start, ed.tile_cnt, ed.cov, part, old)),
-        None if sync is None else sync.data_ptr(), c, int(ed.cov.shape[1]))
+        ed.tile_start, ed.tile_cnt, ed.cov, part, old, sync)), c,
+        int(ed.cov.shape[1]))
 
 
 @dataclasses.dataclass
@@ -143,8 +153,12 @@ class LaneScratch:
     lanes: int
     part: torch.Tensor  # (n_tiles * TILE * L,) f32: one partial per run
     old: torch.Tensor  # (block_size * L,) f32: a hot slot's pre-sweep values
+    sync: torch.Tensor  # (4,) int32: blocks arrived, epoch, slots dealt and
+    # blocks done (all but the epoch 0 between calls)
+    mask: torch.Tensor  # (MAX_SLOTS,) int32: each slot's sub-range mask
     tiles_ub: np.ndarray
-    tile_grid_cap: int  # tile-pass thread blocks that fill the card
+    shapes: dict  # nsub -> lane_shape(lanes, block_size, nsub), for the
+    # unmasked form (1) and the tiles' coverage (ncov)
     args: _SweepTiles | None = None  # the tiles' packed pointers (CUDA only)
 
 
@@ -169,22 +183,49 @@ def make_lane_scratch(ed, block_size: int, lanes: int,
         raise ValueError(f"lane sweeps take 1..{MAX_LANES} lanes")
     dev = ed.src.device
 
-    def buf(name, n):
+    def buf(name, n, dtype=torch.float32):
         old = getattr(reuse, name, None)
         if old is not None and old.numel() == n and old.device == dev:
-            return old
-        return torch.empty(n, dtype=torch.float32, device=dev)
+            return old  # a reused sync is at zero: every call leaves it so
+        new = torch.zeros if name == "sync" else torch.empty
+        return new(n, dtype=dtype, device=dev)
 
     tiles = tuple(weakref.ref(t) for t in _tile_fields(ed))
-    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-           if dev.type == "cuda" else 1)
+    shapes = {nsub: lane_shape(lanes, block_size, nsub)
+              for nsub in {1, int(ed.cov.shape[1])} if nsub >= 1}
     scratch = LaneScratch(tiles, lanes, buf("part", ed.src.numel() * lanes),
-                          buf("old", block_size * lanes), _tiles_ub(ed),
-                          LANE_CTAS_PER_SM * sms)
+                          buf("old", block_size * lanes),
+                          buf("sync", 4, torch.int32),
+                          buf("mask", MAX_SLOTS, torch.int32), _tiles_ub(ed),
+                          shapes)
     if dev.type == "cuda":
         _check_edge_data(ed, block_size, scratch.part, scratch.old)
-        scratch.args = _pack(ed, block_size, scratch.part, scratch.old)
+        scratch.args = _pack(ed, block_size, scratch.part, scratch.old,
+                             scratch.sync)
     return scratch
+
+
+def lane_shape(lanes: int, block_size: int, nsub: int) -> tuple:
+    """(vw, chunk, group) of a lane sweep: the floats per value-row load
+    (4 where L is a multiple of 4, else 1); the tile positions a warp
+    gathers and folds at once (the most, at most TILE, whose messages fit
+    LANE_MSG floats at the odd stride L | 1 and whose rows one batch of
+    LANE_GATHER loads a thread covers); and the lanes the
+    fold takes at once: all L where shared memory holds their delta trees
+    (two arrays of ``nsub`` zero-padded power-of-two sub-ranges per lane),
+    else a multiple of vw (vw falls to 1 where not even vw lanes fit)."""
+    vw = 4 if lanes % 4 == 0 else 1
+    def chunk(vw):
+        return min(TILE, LANE_MSG // (lanes | 1),
+                   32 * LANE_GATHER // (lanes // vw))
+
+    width = nsub * (1 << (block_size // nsub - 1).bit_length())
+    fit = LANE_TREES // (2 * width)
+    if lanes <= fit:
+        return vw, chunk(vw), lanes
+    if fit < vw:
+        return 1, chunk(1), fit
+    return vw, chunk(vw), fit // vw * vw
 
 
 # -- fold metadata -------------------------------------------------------------
@@ -474,19 +515,16 @@ def _lane_launch(program, n_total, ed, values, vconst, rows, ok, psd, dmax,
     lib = _lib()
     d, cst = program.kernel_consts(n_total)
     ub = int(scratch.tiles_ub[min(nslots, scratch.tiles_ub.size) - 1])
-    grid = max(1, min(ub, scratch.tile_grid_cap))
-    fold_threads = max(32, 1 << (block_size - 1).bit_length())
     err = lib.lane_block_sweep_launch(
-        ctypes.byref(scratch.args), values.data_ptr(), values.data_ptr(),
-        vconst.data_ptr(), ed.aux.data_ptr(), rows.data_ptr(),
-        ok.data_ptr(), lane_done.data_ptr(), nslots, grid, fold_threads,
-        lanes, n_live, program.kernel_id, int(masked), nsub,
+        ctypes.byref(scratch.args), values.data_ptr(), vconst.data_ptr(),
+        ed.aux.data_ptr(), rows.data_ptr(), ok.data_ptr(),
+        lane_done.data_ptr(), scratch.mask.data_ptr(), nslots,
+        -(-ub // LANE_WARPS), lanes, *scratch.shapes[nsub],
+        n_live, program.kernel_id, int(masked), nsub,
         float(program.identity), d, cst,
-        float(np.float32(floor)) if masked else 0.0,
-        int(first), int(last),
-        scratch.part.data_ptr(), scratch.old.data_ptr(), psd.data_ptr(),
-        dmax.data_ptr(), torch._C._cuda_getCurrentRawStream(
-            values.get_device()))
+        float(np.float32(floor)) if masked else 0.0, int(first), int(last),
+        psd.data_ptr(), dmax.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(values.get_device()))
     if err:
         raise RuntimeError("lane_block_sweep launch failed: "
                            + lib.block_sweep_error_string(err).decode())
@@ -505,7 +543,7 @@ def _lib() -> ctypes.CDLL:
             [p] * 7 + [i] * 6 + [f] * 4 + [i] * 2 + [p])
         lib.block_sweep_launch.restype = i
         lib.lane_block_sweep_launch.argtypes = (
-            [p] * 8 + [i] * 8 + [f] * 4 + [i] * 2 + [p] * 5)
+            [p] * 8 + [i] * 10 + [f] * 4 + [i] * 2 + [p] * 3)
         lib.lane_block_sweep_launch.restype = i
         lib.block_sweep_error_string.argtypes = [i]
         lib.block_sweep_error_string.restype = ctypes.c_char_p
@@ -579,8 +617,9 @@ def _check_lane_cuda(ed, values, vconst, rows, ok, psd, dmax, lane_done,
             or dmax.numel() != psd.numel():
         raise ValueError(f"lane_block_sweep: psd/dmax need {nsub} x {lanes} "
                          "entries per block")
-    if block_size % nsub:
-        raise ValueError("lane_block_sweep: sub-blocks must divide the block")
+    if block_size % nsub or nsub > MAX_SUB:
+        raise ValueError(f"lane_block_sweep: sub-blocks must divide the "
+                         f"block, at most {MAX_SUB}")
     if not (first and last) and nslots != 1:
         raise ValueError("lane_block_sweep: multi-pass sweeps take one slot")
 

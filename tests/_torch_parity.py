@@ -105,12 +105,54 @@ def hub_edge_data(s_sub, rng, c=64):
         **tiles, **dict(zip(("rslot", "tinfo", "runs", "pspan"), table)))
 
 
-def _chain(fold, ident, xs):
-    """``xs`` folded left to right from ``ident`` in f32, one dependent
-    step at a time (numpy's ``accumulate`` is sequential; NaN, an unwritten
-    partial, propagates)."""
+def window_edge_data(s_sub, rng, c=512):
+    """A hand-built EdgeData of three one-tile blocks of ``c`` vertices in
+    CSC order on the CPU, each tile's first chunk (``lane_shape``'s, at
+    L = 1, 8 and 32) holding whole rounds of a lane warp's (run, lane)
+    pairs up to the end of its window of 32 runs (64 runs of 4, 32 of 4,
+    32 of 1), the last of them carried on into the next chunk; then runs
+    of 1-6 slots to the end of the tile. Its fold's final round moves the
+    window past the run the next chunk starts in."""
+    from repro_torch.core.engine import EdgeData, tile_coverage
+    from repro_torch.kernels import block_sweep as kb
+    heads = ([4] * 63 + [8], [4] * 31 + [8], [1] * 31 + [2])
+    dst = []
+    for head in heads:
+        lens = list(head)
+        while sum(lens) < kb.TILE and len(lens) < c:
+            lens.append(int(rng.integers(1, 7)))
+        d = np.repeat(np.arange(len(lens)), lens)[:kb.TILE]
+        dst.append(np.concatenate([d, np.zeros(kb.TILE - d.size, np.int64)]))
+    for lanes, head in zip((1, 8, 32), heads):
+        chunk = kb.lane_shape(lanes, c, 1)[1]
+        assert sum(head[:-1]) < chunk < sum(head)
+    dstl = np.stack(dst)
+    valid = np.ones(dstl.shape, bool)
+    cnt = np.ones(len(heads), np.int64)
+
+    def t(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt)
+
+    tiles = dict(dstl=t(dstl, torch.int32), valid=t(valid, torch.bool),
+                 tile_start=t(np.arange(len(heads)), torch.int32),
+                 tile_cnt=t(cnt, torch.int32))
+    n = len(heads) * c
+    table = kb.fold_metadata(tiles["dstl"], tiles["valid"],
+                             tiles["tile_start"], tiles["tile_cnt"], c, n)
+    return EdgeData(
+        src=t(rng.integers(0, n, dstl.shape), torch.int32),
+        w=t(rng.uniform(0.5, 4.0, dstl.shape), torch.float32),
+        cov=t(tile_coverage(dstl, valid, s_sub, c), torch.bool),
+        aux=t(rng.uniform(1.0, 9.0, n), torch.float32),
+        **tiles, **dict(zip(("rslot", "tinfo", "runs", "pspan"), table)))
+
+
+def _chain(fold, start, xs):
+    """``xs`` folded left to right from ``start`` (the identity, or a
+    carried partial) in f32, one dependent step at a time (numpy's
+    ``accumulate`` is sequential; NaN, an unwritten partial, propagates)."""
     return fold.accumulate(np.concatenate(
-        [np.full((1,) + xs.shape[1:], ident, np.float32),
+        [np.broadcast_to(np.float32(start), (1,) + xs.shape[1:]),
          xs.astype(np.float32)]), axis=0)[-1]
 
 
@@ -196,18 +238,61 @@ def emulate_kernel(program, n_total, ed, values, rows, ok, psd, dmax, *,
             dmax2[r, s] = delta[seg].max()
 
 
+class _RunWindow:
+    """A lane warp's window on a tile's run table, as the kernel keeps it:
+    runs 32 b .. 32 b + 63 (first position, partial), loaded 32 at a time;
+    a run outside it is not there to read."""
+
+    def __init__(self, runs):
+        self.runs = runs
+        self.move(0)
+
+    def move(self, b):
+        self.b = b
+        self.held = {k: (self.runs[k][0], self.runs[k][2])
+                     for k in range(32 * b, min(32 * b + 64, len(self.runs)))}
+
+    def run(self, k):
+        return self.held[k]
+
+
+def _warp_chain(fold, ident, part, lo, hi, lanes):
+    """A long destination's partials ``part[lo:hi]`` (the lanes of one
+    group) folded as the kernel's warp folds them: batches of
+    ``LONG_FLOATS // lanes`` partials staged in shared memory, the next one
+    loading, each lane's chain over a batch in tile order: one chain, batch
+    after batch, from the identity."""
+    from repro_torch.kernels import block_sweep as kb
+    step = kb.LONG_FLOATS // lanes
+    acc = np.full(part.shape[1:], ident, np.float32)
+    for r0 in range(lo, hi, step):
+        acc = _chain(fold, acc, part[r0:min(r0 + step, hi)])
+    return acc
+
+
 def emulate_lane_kernel(program, n_total, ed, values, vconst, rows, ok, psd,
-                        dmax, lane_done, *, block_size, n_live, floor=None):
-    """A one-pass lane sweep re-enacted in numpy the way the lane kernel of
-    csrc/block_sweep.cu runs it, from the run table: one mask per slot from
-    the lanes not done, each tile's L messages per slot gathered in run
-    order, each (run, lane) stretch folded from the identity into the run's
-    partial, then each vertex's contiguous partials ``pspan[v]`` folded lane
-    by lane. In place, like the kernel."""
+                        dmax, lane_done, old=None, *, block_size, n_live,
+                        floor=None, first=True, last=True):
+    """A lane sweep pass re-enacted in numpy the way ``lane_sweep`` of
+    csrc/block_sweep.cu runs it, from the run table and
+    ``kb.lane_shape``: one mask per slot from the lanes not done (a slot
+    whose mask is empty owns no tiles); each tile staged in run order and
+    taken in chunks of ``chunk`` positions, each (run, lane) of a chunk
+    folded from the identity, or from its carry where the run began in an
+    earlier chunk, into the other carry where it goes on past the chunk and
+    into its partial where it ends (the pairs in rounds of 32, each run
+    read through the warp's window of 64 runs); then each slot's fold lane group by lane
+    group: a destination's contiguous partials ``pspan[v]`` from the
+    identity (a warp's batched chain past ``LONG_SPAN``), apply, and the
+    group's deltas through the pairwise tree. Partials and carries are NaN
+    until written (and a carry once read), so a read before its write
+    shows. ``old`` ((C, L)) is the scratch of a multi-pass one-slot chain
+    (``first``/``last``). In place, like the kernel."""
     from repro_torch.kernels import block_sweep as kb
     c, lanes = block_size, values.shape[1]
     nsub = 1 if floor is None else int(ed.cov.shape[1])
     sub = c // nsub
+    _, chunk, group = kb.lane_shape(lanes, c, nsub)
     ident = np.float32(program.identity)
     fold = {"sum": np.add, "min": np.minimum,
             "max": np.maximum}[program.combine]
@@ -223,39 +308,85 @@ def emulate_lane_kernel(program, n_total, ed, values, vconst, rows, ok, psd,
         done, np.float32(0), psd3[r].numpy()).max(axis=-1)
         >= np.float32(floor)) for r in slots}
     part = np.full((src.size, lanes), np.nan, np.float32)
-    for r in slots:  # launch 1: the tile pass
+    for r in slots:  # the tiles, a warp each
+        if not acts[r].any():
+            continue
         for t in range(ts[r], ts[r] + tc[r]):
             if floor is not None and not (cov[t] & acts[r]).any():
                 continue
             order, runs = _tile_order(ed, t, kb)
-            s_e = torch.from_numpy(src[t, order]).long()
-            m = program.edge_map(values[s_e], ed.aux[s_e],
-                                 torch.from_numpy(w[t, order])).numpy()
-            for lo, hi, p in runs:
-                part[p] = _chain(fold, ident, m[lo:hi])
-    news = []
-    for r in slots:  # launch 2: the fold, one block per slot
+            win = _RunWindow(runs)
+            s_e = torch.from_numpy(src[t, order]).long()  # staged
+            w_e = torch.from_numpy(w[t, order])
+            carry = np.full((2, lanes), np.nan, np.float32)
+            k_lo = 0
+            for ci, c0 in enumerate(range(0, len(order), chunk)):
+                c1 = min(c0 + chunk, len(order))
+                at = slice(c0, c1)
+                m = program.edge_map(values[s_e[at]], ed.aux[s_e[at]],
+                                     w_e[at]).numpy()
+                pairs, goes_on = 0, False
+                if k_lo < 32 * win.b:  # re-anchored below the window
+                    win.move(k_lo // 32)
+                for q0 in range(0, 32 * len(runs) * lanes + 32, 32):
+                    k_r = k_lo + q0 // lanes  # rounds of 32 (run, lane)
+                    while k_r >= 32 * (win.b + 1):
+                        win.move(win.b + 1)
+                    ks = {k_lo + q // lanes for q in range(q0, q0 + 32)}
+                    mine = {k for k in ks
+                            if k < len(runs) and win.run(k)[0] < c1}
+                    for k in sorted(mine):  # L threads per run
+                        lo, p = win.run(k)
+                        hi = win.run(k + 1)[0] if k + 1 < len(runs) \
+                            else len(order)
+                        start = carry[ci % 2].copy() if lo < c0 else ident
+                        acc = _chain(fold, start, m[max(lo, c0) - c0:
+                                                    min(hi, c1) - c0])
+                        if hi > c1:
+                            carry[(ci + 1) % 2] = acc
+                            goes_on = True
+                        else:
+                            part[p] = acc
+                    pairs += sum(min(q0 + 32, (k - k_lo + 1) * lanes)
+                                 - max(q0, (k - k_lo) * lanes)
+                                 for k in mine)
+                    if k_lo + (q0 + 31) // lanes not in mine:
+                        break
+                carry[ci % 2] = np.nan  # read by this chunk alone
+                k_lo += pairs // lanes - goes_on
+    width = nsub * (1 << (sub - 1).bit_length())
+    for r in slots:  # the fold of each slot, after every tile
         base = r * c
         live = base + np.arange(c) < n_live
         keep = live & np.repeat(acts[r], sub)
-        agg = np.full((c, lanes), ident, np.float32)
-        for i in np.flatnonzero(keep):
-            lo, hi = pspan[base + i]
-            agg[i] = _chain(fold, ident, part[lo:hi])
-        old = values[base:base + c].clone()
-        new = torch.where(torch.from_numpy(keep)[:, None], program.apply(
-            old, torch.from_numpy(agg), vconst[base:base + c], n_total), old)
-        news.append((r, old, new, live, keep))
-    for r, old, new, live, keep in news:
-        values[r * c:(r + 1) * c] = new
-        delta = torch.where(torch.from_numpy(keep)[:, None],
-                            program.sd_delta(old, new), 0.0)
-        for s in np.flatnonzero(acts[r]):
-            seg = slice(s * sub, (s + 1) * sub)
-            cnt = max(int(live[seg].sum()), 1)
-            psd3[r, s] = kb.pairwise_sum(delta[seg]) / torch.tensor(
-                float(cnt))
-            dmax3[r, s] = delta[seg].amax(dim=0)
+        prev = values[base:base + c].clone()
+        if first and not last:
+            old.copy_(prev)
+        for l0 in range(0, lanes, group):
+            lg = slice(l0, min(l0 + group, lanes))
+            agg = np.full((c, lg.stop - l0), ident, np.float32)
+            for i in np.flatnonzero(keep):
+                lo, hi = pspan[base + i]
+                agg[i] = (_warp_chain(fold, ident, part[:, lg], lo, hi,
+                                      lanes)
+                          if hi - lo > kb.LONG_SPAN
+                          else _chain(fold, ident, part[lo:hi, lg]))
+            new = torch.where(torch.from_numpy(keep)[:, None], program.apply(
+                prev[:, lg], torch.from_numpy(agg),
+                vconst[base:base + c, lg], n_total), prev[:, lg])
+            values[base:base + c, lg] = new
+            if not last:
+                continue
+            was = prev[:, lg] if first else old[:, lg]
+            delta = torch.where(torch.from_numpy(keep)[:, None],
+                                program.sd_delta(was, new), 0.0)
+            assert 2 * width * (lg.stop - l0) <= kb.LANE_TREES
+            for s in np.flatnonzero(acts[r]):
+                seg = slice(s * sub, (s + 1) * sub)
+                cnt = max(int(live[seg].sum()), 1)
+                psd3[r, s, lg] = kb.pairwise_sum(delta[seg]) / torch.tensor(
+                    float(cnt))
+                dmax3[r, s, lg] = delta[seg].amax(dim=0)
 
 
 def emulate_segment_kernel(msg, layout, row, combine, init):

@@ -256,6 +256,70 @@ def test_lane_kernel_matches_plain(card, fam, s):
             assert torch.equal(a, b), (fam, s, depth)
 
 
+@pytest.mark.parametrize("s_sub", [1, 8])
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+@pytest.mark.parametrize("fam", ["sssp", "bfs", "ppr"])
+@pytest.mark.parametrize("layout", ["hub", "window"])
+def test_lane_kernels_on_long_runs_and_hub_pass_match_plain(card, layout,
+                                                            fam, lanes,
+                                                            s_sub):
+    """Kernels 1l (S = 1) and 1lm (S = 8) through the kernel itself against
+    the plain version on CPU copies, bitwise, on hand-built layouts
+    (``_torch_parity``): ``hub_edge_data``, tiles that are one 512-slot run
+    each (carried across the chunks of a warp's gather), a hub destination
+    of 1200 partials (the fold's warp chain) and a block laid out as a
+    stream leaves it; ``window_edge_data``, tiles whose first chunk ends a
+    round of (run, lane) pairs at the end of a warp's window of runs. A
+    one-slot pass of the first block at depth 8 and a slate of every block,
+    with a third of the lanes done."""
+    from _torch_parity import hub_edge_data, window_edge_data
+    rng = np.random.default_rng(11)
+    if layout == "hub":
+        ed_cpu, c, nb = hub_edge_data(s_sub, rng), 64, 2
+    else:
+        ed_cpu, c, nb = window_edge_data(s_sub, rng), 512, 3
+    ed = type(ed_cpu)(*(t.cuda() for t in ed_cpu))
+    n_live = nb * c - 5
+    prog = A.LANE_FAMILIES[fam]()
+    if fam == "ppr":
+        values = rng.uniform(0.0, 1e-2, (nb * c, lanes)).astype(np.float32)
+        vconst = np.where(rng.random(values.shape) < 0.1, 0.5, 0.0)
+    else:
+        values = np.where(rng.random((nb * c, lanes)) < 0.4, A.INF,
+                          rng.uniform(0.0, 30.0, (nb * c, lanes)))
+        vconst = np.zeros_like(values)
+    values, vconst = values.astype(np.float32), vconst.astype(np.float32)
+    psd0 = np.where(rng.random((nb, s_sub, lanes)) < 0.6, 1.0,
+                    0.0).astype(np.float32)
+    psd0[:, 0, 0] = 1.0  # every block's first sub-range is live
+    done = np.arange(lanes) % 3 == 1
+    floor = np.float32(1e-3) if s_sub > 1 else None
+    for rows, depth in (([0], 8), (list(range(nb))[::-1], 1)):
+        out = []
+        for dev, e in (("cuda", ed), ("cpu", ed_cpu)):
+            v = torch.from_numpy(values.copy()).to(dev)
+            p = torch.from_numpy(psd0.copy()).to(dev)
+            d = torch.full(psd0.shape, -1.0, device=dev)
+            args = [torch.from_numpy(a).to(dev) for a in (
+                vconst, np.array(rows, np.int32), np.ones(len(rows), bool))]
+            sc = kb.make_lane_scratch(e, c, lanes)
+            for i in range(depth):
+                kw = dict(block_size=c, n_live=n_live, first=i == 0,
+                          last=i == depth - 1)
+                call = [prog, n_live, e, v, *args, p, d,
+                        torch.from_numpy(done).to(dev), sc]
+                if dev == "cpu":
+                    kb.lane_block_sweep_ref(*call, floor=floor, **kw)
+                elif floor is None:
+                    kb.lane_block_sweep(*call, **kw)
+                else:
+                    kb.masked_lane_block_sweep(*call, floor=floor, **kw)
+            out.append((v.cpu(), p.cpu(), d.cpu()))
+        torch.cuda.synchronize()
+        for a, b in zip(*out):
+            assert torch.equal(a, b), (fam, lanes, s_sub, rows, depth)
+
+
 @pytest.mark.parametrize("fam", ["sssp", "bfs"])
 def test_one_lane_kernel_is_kernel_1(card, fam):
     eng = StructureAwareEngine(_graph(fam), A.REGISTRY[fam](), CFG)

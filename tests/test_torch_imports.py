@@ -77,6 +77,9 @@ def test_kernel_table_bits_are_the_source_bits():
     assert f"#define MAX_SLOTS {kb.MAX_SLOTS}" in src
     assert f"#define MAX_BLOCK {kb.MAX_BLOCK}" in src
     assert f"#define MAX_LANES {kb.MAX_LANES}" in src
+    for name in ("LANE_WARPS", "LONG_SPAN", "LANE_MSG", "LANE_GATHER",
+                 "LONG_FLOATS"):
+        assert f"#define {name} {getattr(kb, name)}" in src, name
 
 
 def test_default_device_needs_a_card(monkeypatch):

@@ -13,16 +13,23 @@ the port through ``repro_torch.interop``. The bar:
 * a one-lane k_sssp/k_bfs sweep equals the single-lane sweep of sssp/bfs
   bitwise, deltas included (the CUDA kernels are held to the same on the
   card by chip_smoke.py).
-* the lane kernel's order, re-enacted in numpy (``emulate_lane_kernel``),
-  equals the plain version bitwise, sums included, at S = 1 and S > 1.
+* the lane kernel's order, re-enacted in numpy (``emulate_lane_kernel``:
+  its tile chunks and carries, lane groups and warp chains), equals the
+  plain version bitwise, sums included, at S = 1 and S > 1, and on the
+  build-time layout, a streamed one and a hand-built hub of whole tiles at
+  L = 1, 8 and 32, on a cold slate and a multi-pass one-slot chain.
 * k_ppr's ``apply`` is XLA's fused form, bitwise.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import emulate_lane_kernel, one_torch_thread  # noqa: F401
+from _torch_parity import emulate_lane_kernel, hub_edge_data
+from _torch_parity import window_edge_data
+from _torch_parity import one_torch_thread  # noqa: F401
 from _torch_parity import port_engine
 
 from repro.core import algorithms as JA
@@ -32,9 +39,11 @@ from repro.core.engine import EngineConfig as JConfig
 from repro.core.engine import StructureAwareEngine as JEngine
 from repro.core.engine import make_lane_processor as j_lane_processor
 from repro_torch.core import algorithms as TA
+from repro_torch.core import graph as TG
 from repro_torch.core import state as TSt
 from repro_torch.core.engine import EngineConfig as TConfig
-from repro_torch.core.engine import make_lane_processor
+from repro_torch.core.engine import StructureAwareEngine as TEngine
+from repro_torch.core.engine import make_lane_processor, tile_coverage
 from repro_torch.kernels import block_sweep as kb
 
 C = 64
@@ -53,18 +62,19 @@ def _pair(fam, s=1):
     return jeng, teng
 
 
-def _lane_state(fam, n_pad, rng):
-    """Mid-run (n_pad, L) values and vconst: every kind of entry."""
+def _lane_state(fam, n_pad, rng, lanes=L):
+    """Mid-run (n_pad, lanes) values and vconst: every kind of entry."""
+    shape = (n_pad, lanes)
     if fam == "ppr":
-        v = rng.uniform(0.0, 0.2, (n_pad, L)).astype(np.float32)
-        vc = np.where(rng.random((n_pad, L)) < 0.05,
-                      rng.uniform(0.0, 1.0, (n_pad, L)), 0.0)
+        v = rng.uniform(0.0, 0.2, shape).astype(np.float32)
+        vc = np.where(rng.random(shape) < 0.05,
+                      rng.uniform(0.0, 1.0, shape), 0.0)
         return v, vc.astype(np.float32)
-    v = np.where(rng.random((n_pad, L)) < 0.4, JA.INF,
-                 rng.uniform(0.0, 30.0, (n_pad, L))).astype(np.float32)
+    v = np.where(rng.random(shape) < 0.4, JA.INF,
+                 rng.uniform(0.0, 30.0, shape)).astype(np.float32)
     if fam == "bfs":
         v = np.where(v < JA.INF, np.floor(v), v).astype(np.float32)
-    return v, np.zeros((n_pad, L), np.float32)
+    return v, np.zeros(shape, np.float32)
 
 
 def _port_sweep(teng, fam, ed, values, vconst, psd, dmax, rows, ok,
@@ -211,6 +221,103 @@ def test_lane_kernel_order_matches_plain(fam, s):
         out.append((tv, psd, dmax))
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(fam, s, layout):
+    """(ed, block size, n_total, n_live) of one tile layout at S = ``s``:
+    the port engine's build-time tiles of the family's host program (CSC
+    order, every tile flagged sorted); the same tiles as a stream leaves
+    them (each tile's slots shuffled, a fifth of them dead, coverage and
+    run table rebuilt); blocks of 256 laid out so (tiles of up to 256
+    runs, past a warp's window of 64); the hand-built hub
+    (``hub_edge_data``: a destination of 1200 whole tiles, 1200 partials,
+    beside a streamed block); or the hand-built tiles whose first chunk
+    ends a round at the end of a warp's window of runs
+    (``window_edge_data``, blocks of 512)."""
+    rng = np.random.default_rng(17)
+    if layout == "hub":
+        return hub_edge_data(s, rng), C, 2 * C - 5, 2 * C - 5
+    if layout == "window":
+        return window_edge_data(s, rng), 512, 3 * 512, 3 * 512 - 7
+    c = 256 if layout == "wide" else C
+    g = TG.powerlaw_graph(1200 if c == C else 3000, 6, seed=11,
+                          weighted=fam == "sssp")
+    eng = TEngine(g, TA.REGISTRY[HOST[fam]](),
+                  TConfig(block_size=c, width=4, subblocks=s), device="cpu")
+    ed = eng.edge_state
+    if layout != "build":
+        perm = torch.from_numpy(np.argsort(rng.random(ed.src.shape), axis=1))
+        src, dstl, w, valid = (torch.gather(t, 1, perm).contiguous()
+                               for t in (ed.src, ed.dstl, ed.w, ed.valid))
+        valid &= torch.from_numpy(rng.random(valid.shape) > 0.2)
+        table = kb.fold_metadata(dstl, valid, ed.tile_start, ed.tile_cnt, c,
+                                 ed.pspan.shape[0])
+        ed = ed._replace(
+            src=src, dstl=dstl, w=w, valid=valid,
+            cov=torch.as_tensor(tile_coverage(dstl.numpy(), valid.numpy(),
+                                              s, c)),
+            **dict(zip(("rslot", "tinfo", "runs", "pspan"), table)))
+        assert not (ed.tinfo & kb.TINFO_SORTED).any()
+    if layout == "wide":
+        assert ((ed.tinfo >> kb.TINFO_RUNS) & kb.TINFO_COUNT).max() > 64
+    return ed, c, eng.plan.graph.n, eng.plan.n_live
+
+
+@pytest.mark.parametrize("layout", ["build", "streamed", "wide", "window",
+                                    "hub"])
+@pytest.mark.parametrize("fam", ["sssp", "bfs", "ppr"])
+@pytest.mark.parametrize("s", [1, 8])
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+def test_lane_kernel_order_on_layouts(lanes, s, fam, layout):
+    """The lane kernel's order (``emulate_lane_kernel``: chunks of
+    ``lane_shape``'s positions with their carries, lane groups, a warp's
+    batched chain past LONG_SPAN partials) equals the plain lane sweep bit
+    for bit, sums included: a cold slate of every block in a seeded order
+    (a fifth not ok), then a 3-pass one-slot chain of the largest block; at
+    S = 8 masked, with seeded psd rows and a third of the lanes done; on
+    the build-time, streamed, wide (more runs in a tile than a warp's
+    window holds), window (rounds that end at the window's end) and hub
+    layouts."""
+    ed, c, n_total, n_live = _layout(fam, s, layout)
+    P, n_pad = ed.tile_cnt.numel(), ed.pspan.shape[0]
+    prog = TA.LANE_FAMILIES[fam]()
+    rng = np.random.default_rng(1000 * lanes + 10 * s + len(layout))
+    values, vconst = _lane_state(fam, n_pad, rng, lanes)
+    vconst = torch.from_numpy(vconst)
+    floor = np.float32(1e-3) if s > 1 else None
+    psd0 = np.where(rng.random((P, s, lanes)) < 0.4, 1.0, 1e-4).astype(
+        np.float32)
+    hub = int(np.argmax(ed.tile_cnt))
+    psd0[hub, 0, 0] = 1.0  # the largest block's first sub-range is live
+    done = torch.from_numpy(np.arange(lanes) % 3 == 1)  # lane 0 is not done
+    rows = rng.permutation(P).astype(np.int32)
+    ok = rng.random(P) < 0.8
+    ok[rows == hub] = True
+    changed = 0
+    for r, k, depth in ((rows, ok, 1), ([hub], [True], 3)):
+        r = torch.tensor(r, dtype=torch.int32)
+        k = torch.tensor(k, dtype=torch.bool)
+        out = []
+        for how in ("plain", "kernel order"):
+            tv = torch.from_numpy(values.copy())
+            psd = torch.from_numpy(psd0.copy())
+            dmax = torch.full((P, s, lanes), -1.0)
+            sc = kb.make_lane_scratch(ed, c, lanes)
+            old = torch.empty(c, lanes)
+            for i in range(depth):
+                kw = dict(block_size=c, n_live=n_live, floor=floor,
+                          first=i == 0, last=i == depth - 1)
+                args = (prog, n_total, ed, tv, vconst, r, k, psd, dmax, done)
+                if how == "plain":
+                    kb.lane_block_sweep_ref(*args, sc, **kw)
+                else:
+                    emulate_lane_kernel(*args, old, **kw)
+            out.append((tv, psd, dmax))
+        for a, b in zip(*out):
+            assert torch.equal(a, b), (depth, lanes, s, fam, layout)
+        changed += int((out[0][0] != torch.from_numpy(values)).sum())
+    assert changed > 0
 
 
 def test_ppr_apply_is_the_xla_fma():
