@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --segment-repeats N  # phase 6a's times, N times
     python3 chip_smoke.py --sweep-profile  # kernels 1/1m/1l/1lm's shapes alone
+    python3 chip_smoke.py --ssd-profile  # kernel 5 at the two models' shapes
 
 Phases (any failed check exits non-zero; nothing is caught and passed over):
 
@@ -192,11 +193,14 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       a normal plus the dt bias, A in [1, 16]) so that exp(l_q - l_s)
       overflows above the diagonal (checked), f32 at rtol=1e-5,
       atol=1e-4 * max|y| and bf16 at 2e-2; then the reference test's three
-      shapes in f32. Then one call timed at mamba2's shape in f32: the
-      kernel, its plain version and the bound (the larger of the bytes
-      and the causal flops at the TF32 rate, the Gram c.b counted once per
-      cell since the heads share c and b; the f32 CUDA-core floor is
-      printed beside it, and the flops the kernel executes). No single
+      shapes in f32. Then timed in f32 at both models' shapes (CUDA
+      events over 20 calls, and torch.profiler's device time; the same
+      readings alone: --ssd-profile), beside the bound (the larger of the
+      bytes and the causal flops at the TF32 rate, the Gram c.b counted
+      once per cell since the heads share c and b; the f32 CUDA-core floor
+      is printed beside it, and the TF32 flops the kernel executes: three
+      per f32 product, the Gram once per head group), and the plain
+      version at mamba2's shape. No single
       PyTorch call computes the function, so there is no library time.
    d. mamba2_2p7b at its published width and depth (64 layers, d = 2560,
       80 SSM heads of 64, N = 128, 2,704,590,336 parameters), served and
@@ -2077,11 +2081,10 @@ def ssd_inputs(gen, cells, q, n, h, p, dtype):
 
 
 def ssd_phase():
-    """Phase 8c: kernel 5 against its plain version on the card, then one
-    call timed at mamba2_2p7b's prefill shape. Returns the largest error
-    and the times."""
+    """Phase 8c: kernel 5 against its plain version on the card, then timed
+    at mamba2_2p7b's and hymba_1p5b's prefill shapes. Returns the largest
+    error and mamba2's times."""
     import torch
-    from repro_torch import configs
     from repro_torch.kernels import ssd_scan as SSD
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -2105,9 +2108,7 @@ def ssd_phase():
 
     errs, lines = {}, []
     for arch in (SSM_ARCH, HYBRID_ARCH):
-        cfg = configs.get(arch)
-        shape = (LM_BATCH * LM_PROMPT // cfg.ssm_chunk, cfg.ssm_chunk,
-                 cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim)
+        shape = ssd_shape(arch)
         for dtype, tol in ((torch.float32, (1e-5, 1e-4)),
                            (torch.bfloat16, (2e-2, 2e-2))):
             c, b, u, ld = ssd_inputs(gen, *shape, dtype)
@@ -2132,36 +2133,115 @@ def ssd_phase():
         lines.append(f"(G, Q, N, P) = {(g, q, n, p)} f32: {err!r}")
     log("[kernel] 8c: kernel 5 against its plain version (f32 at rtol=1e-5, "
         "atol=1e-4 * max|y|; bf16 at 2e-2 * max|y|): " + "; ".join(lines))
-    # one call at mamba2_2p7b's prefill shape, f32 (the model's route)
-    cfg = configs.get(SSM_ARCH)
-    cells, q = LM_BATCH * LM_PROMPT // cfg.ssm_chunk, cfg.ssm_chunk
-    n, h, p = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    c, b, u, ld = ssd_inputs(gen, cells, q, n, h, p, torch.float32)
-    ms = cuda_ms(lambda: SSD.ssd_intra_chunk(c, b, u, ld), 20)
+    # kernel 5 alone at both models' prefill shapes, f32 (the model's route)
+    times = ssd_times(gen)
+    parts = []
+    for arch, t in times.items():
+        cells, q, n, h, p = t["shape"]
+        # the causal term: the Gram c.b once per cell (the heads share c
+        # and b), its decayed tile times u once per (cell, head)
+        flops = cells * q * (q + 1) * (n + h * p)
+        nbytes = 4 * cells * q * (2 * n + (2 * p + 1) * h)
+        t_ops, t_bytes = flops / TF32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        t["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        run = ssd_run_flops(cells, q, n, h, p, SSD.head_group(h, n, p))
+        profiled = (f"{t['profiled_ms']!r} ms" if t["profiled_ms"] else
+                    "not measured, no kernel 5 in its listing")
+        parts.append(
+            f"{arch} (cells, Q, N, H, P) = {t['shape']}: kernel {t['ms']!r} "
+            f"ms (CUDA events over 20 calls; a call on the card by "
+            f"torch.profiler: {profiled}), bound {t['bound_ms']!r} ms "
+            f"({t['bound_by']}: {nbytes} B at {HBM_BYTES_PER_S:.3g} B/s, "
+            f"{flops} causal flops at the TF32 rate {TF32_FLOPS_PER_S:.4g}/s"
+            f" = {t_ops * 1e3!r} ms; the f32 CUDA-core floor of the same "
+            f"flops at {F32_FLOPS_PER_S:.3g}/s is "
+            f"{flops / F32_FLOPS_PER_S * 1e3!r} ms); kernel at "
+            f"{flops / t['ms'] / 1e9:.4g} TFLOP/s of the function's flops; "
+            f"head group {SSD.head_group(h, n, p)}; it executes {run} TF32 "
+            f"flops (3 per f32 product, the Gram once per head group, "
+            f"whole 64 x 64 tiles but the diagonal's k-steps above each "
+            f"warp's rows), {run / t['ms'] / 1e9:.4g} TFLOP/s, "
+            f"{run / TF32_FLOPS_PER_S * 1e3!r} ms at the TF32 peak")
+    c, b, u, ld = times[SSM_ARCH]["inputs"]
     plain_ms = cuda_ms(lambda: SSD.ssd_intra_chunk_ref(c, b, u, ld), 3)
-    # the causal term: the Gram c.b once per cell (the heads share c and
-    # b), its decayed tile times u once per (cell, head)
-    flops = cells * q * (q + 1) * (n + h * p)
-    # what the kernel executes: the Gram once per (cell, head), and whole
-    # 64 x 64 tiles on the diagonal
+    t = times[SSM_ARCH]
+    log(f"[kernel] 8c: kernel 5 in f32: " + "; ".join(parts)
+        + f"; the plain version at {SSM_ARCH}'s shape {plain_ms!r} ms; no "
+        f"single PyTorch call computes this function, so there is no "
+        f"library time")
+    return errs, dict(ms=t["ms"], plain_ms=plain_ms, library_ms=None,
+                      bound_ms=t["bound_ms"], bound_by=t["bound_by"])
+
+
+def ssd_shape(arch):
+    """Kernel 5's heads-form shape (cells, Q, N, H, P) in ``arch``'s prefill
+    of LM_BATCH x LM_PROMPT tokens."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    return (LM_BATCH * LM_PROMPT // cfg.ssm_chunk, cfg.ssm_chunk,
+            cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim)
+
+
+def ssd_run_flops(cells, q, n, h, p, hg) -> int:
+    """The TF32 flops kernel 5 executes (csrc/ssd_scan.cu): three products
+    per f32 product; the Gram of every 64 x 64 (query tile, key tile) pair
+    up to the diagonal once per head group of ``hg`` heads, N rounded up to
+    the kernel's 32-column chunks; the decayed tile times u per head, whole
+    off the diagonal and, on it, the k-steps up to each warp's last row
+    (warp w of 4 runs 2 w + 2 of 8: 20 of 32)."""
     tiles = -(-q // 64)
-    run_flops = cells * h * tiles * (tiles + 1) * 64 * 64 * (n + p)
-    nbytes = 4 * (c.numel() + b.numel() + 2 * u.numel() + ld.numel())
-    t_ops, t_bytes = flops / TF32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"[kernel] 8c: kernel 5 at (cells, Q, N, H, P) = {(cells, q, n, h, p)}"
-        f" f32: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} "
-        f"ms ({bound_by}: {nbytes} B at {HBM_BYTES_PER_S:.3g} B/s, "
-        f"{flops} causal flops at the TF32 rate {TF32_FLOPS_PER_S:.4g}/s = "
-        f"{t_ops * 1e3!r} ms); the f32 CUDA-core floor of the same flops at "
-        f"{F32_FLOPS_PER_S:.3g}/s is {flops / F32_FLOPS_PER_S * 1e3!r} ms; "
-        f"kernel at {flops / ms / 1e9:.4g} TFLOP/s of the function's flops; "
-        f"it executes {run_flops} flops (the Gram per head, whole diagonal "
-        f"tiles), {run_flops / ms / 1e9:.4g} TFLOP/s; no single PyTorch call "
-        f"computes this function, so there is no library time")
-    return errs, dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                      bound_ms=bound_ms, bound_by=bound_by)
+    pairs = tiles * (tiles + 1) // 2
+    gram = cells * -(-h // hg) * pairs * 64 * 64 * (-(-n // 32) * 32)
+    # warp k-steps of a 16-row, 8-key fragment times u: 32 per whole tile
+    wu = cells * h * (tiles * (tiles - 1) // 2 * 32 + tiles * 20) * 16 * 8 * p
+    return 2 * 3 * (gram + wu)
+
+
+def ssd_times(gen, reps: int = 20) -> dict:
+    """Kernel 5 alone, f32, at mamba2_2p7b's and hymba_1p5b's prefill
+    shapes (``ssd_inputs``): the mean of ``reps`` calls by CUDA events, and
+    its device time a call by torch.profiler over ``reps`` calls. Through
+    the wrapper's public call alone, so a copy of this script times a
+    parent tree's kernel too. Returns {arch: {shape, ms, profiled_ms,
+    inputs}}."""
+    import torch
+    from repro_torch.kernels import ssd_scan as SSD
+    out = {}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        shape = ssd_shape(arch)
+        c, b, u, ld = ssd_inputs(gen, *shape, torch.float32)
+
+        def call():
+            SSD.ssd_intra_chunk(c, b, u, ld)
+
+        ms = cuda_ms(call, reps)
+        prof = profile_kernels(lambda: [call() for _ in range(reps)])
+        us = sum(t for key, (t, _) in prof.items() if "ssd_intra" in key)
+        # None: the profiler listed no kernel 5 (seen inside the whole
+        # smoke run, after phase 8b's profiles); not a time of 0
+        out[arch] = dict(shape=shape, ms=ms,
+                         profiled_ms=us / 1e3 / reps if us else None,
+                         inputs=(c, b, u, ld))
+    return out
+
+
+def ssd_profile() -> int:
+    """``--ssd-profile``: kernel 5 alone at both models' prefill shapes
+    (``ssd_times``), printed as one JSON line. No checks against the plain
+    version and no result line: the smoke run is the one without
+    arguments."""
+    import torch
+    from repro_torch.kernels import _build
+    log(f"[device] {card_line()}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    _build.build("ssd_scan")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    times = ssd_times(torch.Generator(device=DEV).manual_seed(SSD_SEED))
+    print(json.dumps({"ssd_profile": {
+        arch: {k: v for k, v in t.items() if k != "inputs"}
+        for arch, t in times.items()}}))
+    return 0
 
 
 def largest_chunk(cfg, s: int) -> int:
@@ -2391,6 +2471,8 @@ def main() -> int:
         return segment_repeats(int(sys.argv[2]))
     if sys.argv[1:2] == ["--sweep-profile"]:
         return sweep_profile()
+    if sys.argv[1:2] == ["--ssd-profile"]:
+        return ssd_profile()
     import numpy as np
     from repro_torch.core import algorithms as A
     from repro_torch.core import graph as G

@@ -481,3 +481,61 @@ def emulate_flash_tc(q, k, v, causal, rows=128, keys=128):
         out[..., qi * rows:(qi + 1) * rows, :] = acc / torch.clamp_min(l,
                                                                        1e-30)
     return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def tf32_rna(x):
+    """``x`` (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest with ties away from zero, 10 mantissa bits kept and the low 13
+    bits of the word cleared."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mm_3xtf32(a, b):
+    """a @ b as kernel 5's tensor cores form it: each f32 operand split as
+    hi = tf32(x), lo = tf32(x - hi), and a_lo b_hi + a_hi b_lo + a_hi b_hi
+    summed in f32 (a_lo b_lo dropped)."""
+    ah = tf32_rna(a)
+    al = tf32_rna(a - ah)
+    bh = tf32_rna(b)
+    bl = tf32_rna(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def emulate_ssd_tc(c, b, u, ld, tile=64):
+    """Kernel 5 (csrc/ssd_scan.cu) re-enacted in torch on the CPU, with its
+    roundings at the places the kernel has them: per (64-row query tile,
+    64-key tile) pair up to the diagonal, the Gram c_q . b_s in 3xTF32
+    (:func:`mm_3xtf32`); W = where(s <= q, G * exp(l_q - l_s), 0) formed in
+    f32 (the decay selected, never multiplied by a mask); W u_s in 3xTF32,
+    W split again, summed into an f32 accumulator over the key tiles. Rows
+    past Q are zero, as the kernel's ragged last tile is. Both forms of
+    ``ssd_intra_chunk``; returns u's shape in u's dtype. The CUDA kernel
+    cannot run on the CPU, so this shows that the split keeps its f32
+    bar."""
+    if u.dim() == 3:
+        return emulate_ssd_tc(c, b, u[:, :, None], ld[:, :, None], tile)[
+            :, :, 0]
+    g, q, h, p = u.shape
+    qp = -(-q // tile) * tile
+    cf = torch.zeros(g, qp, c.shape[-1])
+    bf = torch.zeros(g, qp, c.shape[-1])
+    uf = torch.zeros(g, h, qp, p)
+    lf = torch.zeros(g, h, qp)
+    cf[:, :q], bf[:, :q] = c.float(), b.float()
+    uf[:, :, :q] = u.float().permute(0, 2, 1, 3)
+    lf[:, :, :q] = ld.float().permute(0, 2, 1)
+    pos = torch.arange(qp)
+    out = torch.empty(g, h, qp, p)
+    for q0 in range(0, qp, tile):
+        rq = slice(q0, q0 + tile)
+        acc = torch.zeros(g, h, tile, p)
+        for s0 in range(0, q0 + 1, tile):
+            rs = slice(s0, s0 + tile)
+            gram = mm_3xtf32(cf[:, rq], bf[:, rs].transpose(1, 2))
+            keep = pos[rs][None, :] <= pos[rq][:, None]
+            decay = torch.exp(lf[:, :, rq, None] - lf[:, :, None, rs])
+            w = torch.where(keep, gram[:, None] * decay, 0.0)
+            acc = acc + mm_3xtf32(w, uf[:, :, rs])
+        out[:, :, rq] = acc
+    return out[:, :, :q].permute(0, 2, 1, 3).to(u.dtype)

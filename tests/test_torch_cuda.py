@@ -623,13 +623,16 @@ def _ssd_close(got, want, rtol, afac):
 
 @pytest.mark.parametrize("g,q,n,p", [(4, 64, 32, 16), (2, 128, 128, 64),
                                      (6, 128, 64, 128), (3, 100, 16, 32),
-                                     (2, 256, 128, 64), (2, 256, 16, 64)])
+                                     (2, 256, 128, 64), (2, 256, 16, 64),
+                                     (3, 128, 20, 32), (2, 256, 36, 64),
+                                     (2, 576, 16, 16)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_intra_chunk_matches_plain(card, g, q, n, p, dtype):
     """Kernel 5 against its plain version on the card, on the same inputs:
-    the reference test's shapes, a ragged Q, and the models' chunk; f32 at
-    rtol=1e-5, atol=1e-4 * max|y| (the plain version's matmuls in full
-    f32), bf16 at 2e-2 * max|y|."""
+    the reference test's shapes, a ragged Q, the models' chunk, N that is
+    4 mod 8 (zero-padded to whole 32-column chunks) and a chunk past one
+    256-key Gram panel; f32 at rtol=1e-5, atol=1e-4 * max|y| (the plain version's
+    matmuls in full f32), bf16 at 2e-2 * max|y|."""
     from repro_torch.kernels import ssd_scan as SSD
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -647,16 +650,21 @@ def test_ssd_intra_chunk_matches_plain(card, g, q, n, p, dtype):
     _ssd_close(got, want, *tol)
 
 
-def test_ssd_intra_chunk_heads_form_and_views(card):
+@pytest.mark.parametrize("g,q,n,p,h", [(4, 256, 128, 64, 5),
+                                       (2, 256, 16, 64, 25),
+                                       (2, 256, 128, 64, 80),
+                                       (3, 100, 20, 32, 25)])
+def test_ssd_intra_chunk_heads_form_and_views(card, g, q, n, p, h):
     """The heads form (b and c shared by the heads, u and ld read in the
     model's strided layout) equals the one-head form on each head; the
     wrapper takes strided views and mixed dtypes (f32 c and b, bf16 u:
     the result in u's dtype), keeps finite where exp(l_q - l_s) overflows
-    above the diagonal, and refuses a P the kernel lacks."""
+    above the diagonal, and refuses a P the kernel lacks. Head counts that
+    are no multiple of the kernel's head group (hymba's 25, mamba2's 80 at
+    a few cells), a ragged Q and an N that is 4 mod 8 included."""
     from repro_torch.kernels import ssd_scan as SSD
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(3)
-    g, q, n, p, h = 4, 256, 128, 64, 5
     c, b, u, ld = _ssd_inputs(gen, g, q, n, p, h=h, decay=2.0)
     assert float((-ld[:, -1]).max()) > 88.7  # overflows above the diagonal
     got = SSD.ssd_intra_chunk(c, b, u, ld)

@@ -16,11 +16,18 @@ draws from a seed, handed to both packages).
 * A decay that overflows above the diagonal: exp(l_q - l_s) is inf there,
   and both routes and the kernel's plain version stay finite and agree
   with the reference.
+* Kernel 5's arithmetic (3xTF32 on the tensor cores), re-enacted on the
+  CPU by ``_torch_parity.emulate_ssd_tc``, against the plain version and
+  the Pallas kernel at the kernel's bar (rtol=1e-5, atol=1e-4 * max|y|):
+  the reference test's three shapes, and heads-form inputs drawn as the
+  model draws them (exp overflows above the diagonal), with a ragged Q and
+  an N that is 4 mod 8.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_parity import emulate_ssd_tc
 from _torch_parity import one_torch_thread  # noqa: F401
 
 from repro.kernels import ops as jops
@@ -205,3 +212,54 @@ def test_overflowing_decay_stays_finite():
     got = K5.ssd_intra_chunk(*map(torch.from_numpy, (c, b, u, ld)))
     assert torch.isfinite(got).all()
     _close(got, want, 1e-5)
+
+
+def _model_intra_inputs(rng, g, q, n, h, p):
+    """Heads-form inputs drawn as the model draws them (chip_smoke.py's
+    ``ssd_inputs``): c, b, x normal; dt = softplus(normal + dt_bias), the
+    bias the inverse softplus of a log-uniform dt in [1e-3, 1e-1] per head;
+    A uniform in [1, 16]; u = x dt and ld the cumsum of dt * -A."""
+    dt0 = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), h))
+    a = rng.uniform(1.0, 16.0, h)
+    dt = np.logaddexp(0.0, rng.normal(size=(g, q, h)) + np.log(np.expm1(dt0)))
+    ld = np.cumsum(dt * -a, axis=1).astype(np.float32)
+    u = (rng.normal(size=(g, q, h, p)) * dt[..., None]).astype(np.float32)
+    c, b = (rng.normal(size=(g, q, n)).astype(np.float32) for _ in range(2))
+    return c, b, u, ld
+
+
+@pytest.mark.parametrize("g,q,n,p", INTRA_SHAPES[:3])
+def test_tensor_core_emulation_one_head(g, q, n, p):
+    """The 3xTF32 split of both products keeps the f32 bar on the
+    reference test's shapes, against the plain version and the Pallas
+    kernel."""
+    c, b, u, ld = _intra_inputs(np.random.default_rng(g * q + n + p),
+                                g, q, n, p)
+    got = emulate_ssd_tc(*map(torch.from_numpy, (c, b, u, ld)))
+    assert got.shape == (g, q, p) and torch.isfinite(got).all()
+    _close(got, K5.ssd_intra_chunk_ref(*map(torch.from_numpy,
+                                            (c, b, u, ld))), 1e-5)
+    _close(got, jops.ssd_intra_chunk(*map(jnp.asarray, (c, b, u, ld))),
+           1e-5)
+
+
+@pytest.mark.parametrize("g,q,n,h,p", [(2, 256, 16, 8, 16),
+                                       (2, 256, 20, 8, 32),
+                                       (3, 100, 36, 4, 16)])
+def test_tensor_core_emulation_heads_form(g, q, n, h, p):
+    """The same on heads-form inputs drawn as the model draws them, where
+    exp(l_q - l_s) overflows above the diagonal (Q = 256), with an N that
+    is 4 mod 8 (the kernel's zero-padded k-step) and a ragged Q = 100."""
+    c, b, u, ld = _model_intra_inputs(np.random.default_rng(q + n + h), g,
+                                      q, n, h, p)
+    if q == 256:
+        assert (-ld[:, -1]).max() > 88.7  # exp overflows above the diagonal
+    got = emulate_ssd_tc(*map(torch.from_numpy, (c, b, u, ld)))
+    assert got.shape == (g, q, h, p) and torch.isfinite(got).all()
+    _close(got, K5.ssd_intra_chunk_ref(*map(torch.from_numpy,
+                                            (c, b, u, ld))), 1e-5)
+    flat = [np.repeat(c, h, 0), np.repeat(b, h, 0),
+            u.transpose(0, 2, 1, 3).reshape(g * h, q, p),
+            ld.transpose(0, 2, 1).reshape(g * h, q)]
+    want = np.asarray(jops.ssd_intra_chunk(*map(jnp.asarray, flat)))
+    _close(got, want.reshape(g, h, q, p).transpose(0, 2, 1, 3), 1e-5)
