@@ -125,7 +125,8 @@ def cache_specs(cfg: ArchConfig, shape: ShapeConfig, *, concrete=False,
                 seq_override: int | None = None, device="cuda") -> dict:
     """A zero cache for decode shapes (``model.init_cache``: K/V where the
     family has attention, f32 SSM states and conv windows where it has an
-    SSM). Only ``concrete=True`` is supported."""
+    SSM, cross K/V of ``enc_seq`` = the sequence length for whisper, as the
+    reference's). Only ``concrete=True`` is supported."""
     from repro_torch.models import model as model_lib
     if not concrete:
         raise NotImplementedError(
@@ -133,7 +134,7 @@ def cache_specs(cfg: ArchConfig, shape: ShapeConfig, *, concrete=False,
             "item 10); pass concrete=True")
     b = batch_override or shape.global_batch
     s = seq_override or shape.seq_len
-    return model_lib.init_cache(cfg, b, s, device=device)
+    return model_lib.init_cache(cfg, b, s, enc_seq=s, device=device)
 
 
 __all__ = ["ARCH_NAMES", "SHAPES", "get", "all_configs", "reduced",

@@ -5,7 +5,7 @@
 // the prefill and full-sequence forward of the dense and hybrid decoders.
 //
 // What it computes, for q (B, Hq, S, D) and k, v (B, Hkv, S, D), Hq % Hkv ==
-// 0, S % 128 == 0, D in (64, 128), f32 or bf16:
+// 0, S % 128 == 0, D in (64, 96, 128), f32 or bf16:
 //   o[b, h] = softmax(mask(scale * q[b, h] k[b, h / G]^T)) v[b, h / G]
 // with G = Hq / Hkv, scale = 1 / sqrt(D), o contiguous (B, Hq, S, D) in q's
 // dtype. As in _kernel: the causal mask sets -1e30 (not -inf) where the key
@@ -38,6 +38,15 @@
 //     (TMA's CU_TENSOR_MAP_SWIZZLE_128B; D = 128 is two atoms side by side),
 //     which wgmma reads through shared-memory descriptors of the same
 //     swizzle: q and k K-major, v MN-major through the transpose bit.
+//   * D = 96 (phi-3's heads): a 96-column bf16 row is 192 B, which no
+//     128-byte swizzle atom holds whole, so a row is loaded as D = 128's two
+//     64-column boxes. The second box reaches past the tensor map's last
+//     column (D = 96), and TMA fills columns 96-127 with zeros; the shared
+//     layout, the barriers' byte counts and the descriptors are D = 128's.
+//     S = q k^T takes 6 k-steps of 16 (the zero columns are not read), so
+//     it does D = 96's flops; O += P v runs at N = 128 over V's zero
+//     columns (a third more flops for that product, 1/6 of the total) and
+//     the flush stores the 96 real columns. The scale is 1/sqrt(96).
 //   * S = q k^T: wgmma m64n128k16, bf16 in, f32 accumulators in registers.
 //     The scale is applied to the f32 logits after the product (at D = 128
 //     1/sqrt(D) is not exact in bf16), folded with log2(e) into the exp2 of
@@ -70,11 +79,12 @@
 // Thread (ty, tx) of a 16 x 16 grid owns query rows ty + 16 i (i < 4): it
 // computes the logits of keys tx + 16 j (j < 4), so a row's max and sum are
 // reductions over the 16 lanes of a half warp (shuffles), and accumulates
-// the output columns 64 h + 4 tx + u (u < 4, h < D / 64) of its rows from
-// the tile's probabilities, staged in shared memory. Rows of the q and k
-// tiles are padded to D + 4 floats, so the float4 reads of a quarter warp
-// fall in distinct banks. It reads contiguous inputs only. Shared memory:
-// 68,608 B at D = 64 and 117,760 B at D = 128 (one block per SM).
+// the output columns 64 h + 4 tx + u (u < 4, h < D / 64) of its rows, and at
+// D = 96 also 64 + 2 tx + u (u < 2), from the tile's probabilities, staged
+// in shared memory. Rows of the q and k tiles are padded to D + 4 floats, so
+// the float4 reads of a quarter warp fall in distinct banks. It reads
+// contiguous inputs only. Shared memory: 68,608 B at D = 64, 93,184 B at
+// D = 96 and 117,760 B at D = 128.
 //
 // Both routes need more than the 48 KB default of shared memory: each launch
 // raises the kernel's limit first.
@@ -132,9 +142,12 @@ __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int hq, int hkv, int s,
           int causal, float scale) {
+  static_assert(D % 32 == 0 && D <= 128, "D in (64, 96, 128)");
   constexpr int QS = D + 4;   // row stride of the q and k tiles
   constexpr int PS = BK + 4;  // row stride of the p tile
   constexpr int DC = D / 16;  // output columns per thread
+  constexpr int NH = D / 64;  // 64-column chunks: 4 columns a thread each
+  constexpr int R2 = D % 64 ? 1 : 0;  // a 32-column rest: 2 a thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* qs = smem;
@@ -244,7 +257,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
-        for (int h = 0; h < D / 64; ++h) {
+        for (int h = 0; h < NH; ++h) {
           const float4 vv = *reinterpret_cast<const float4*>(
               vs + (c + u) * D + h * 64 + tx * 4);
 #pragma unroll
@@ -253,6 +266,15 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
             acc[i][h * 4 + 1] = fmaf(pa[i][u], vv.y, acc[i][h * 4 + 1]);
             acc[i][h * 4 + 2] = fmaf(pa[i][u], vv.z, acc[i][h * 4 + 2]);
             acc[i][h * 4 + 3] = fmaf(pa[i][u], vv.w, acc[i][h * 4 + 3]);
+          }
+        }
+        if (R2) {
+          const float2 vv = *reinterpret_cast<const float2*>(
+              vs + (c + u) * D + NH * 64 + tx * 2);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][NH * 4 + 0] = fmaf(pa[i][u], vv.x, acc[i][NH * 4 + 0]);
+            acc[i][NH * 4 + 1] = fmaf(pa[i][u], vv.y, acc[i][NH * 4 + 1]);
           }
         }
       }
@@ -264,10 +286,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
     T* out = o + q_base + (long long)(ty + 16 * i) * D;
 #pragma unroll
-    for (int h = 0; h < D / 64; ++h)
+    for (int h = 0; h < NH; ++h)
       store4(out + h * 64 + tx * 4,
              make_float4(acc[i][h * 4 + 0] / den, acc[i][h * 4 + 1] / den,
                          acc[i][h * 4 + 2] / den, acc[i][h * 4 + 3] / den));
+    if (R2)
+      *reinterpret_cast<float2*>(out + NH * 64 + tx * 2) =
+          make_float2(acc[i][NH * 4 + 0] / den, acc[i][NH * 4 + 1] / den);
   }
 }
 
@@ -301,11 +326,17 @@ static_assert(ROWS == 64 * CONSUMERS, "a warpgroup holds 64 q rows");
 
 constexpr int STAGES = 2;      // K and V ring depth
 
+// 64-column atoms of a row of head dim D (D = 96 takes D = 128's two)
+template <int D>
+__host__ __device__ constexpr int atoms() {
+  return (D + 63) / 64;
+}
+
 template <int D>
 constexpr int smem_bytes() {
   // 1024 B of alignment slack, the q tile, the K and V rings, the output
   // tile, the barriers
-  return 1024 + (2 + 2 * STAGES) * (D / 64) * ATOM + 8 * (2 + 4 * STAGES);
+  return 1024 + (2 + 2 * STAGES) * atoms<D>() * ATOM + 8 * (2 + 4 * STAGES);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -547,7 +578,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, int bhq, int hq, int hkv,
                 int s, int causal, float scale_log2) {
-  constexpr int NA = D / 64;  // 64-column atoms per row
+  static_assert(D == 64 || D == 96 || D == 128, "D in (64, 96, 128)");
+  constexpr int NA = atoms<D>();  // 64-column atoms per row
+  constexpr int DP = 64 * NA;     // O's columns in the products (D padded)
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -642,7 +675,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     float sc[KEYS / 2];          // S = q k^T of the newest tile
     uint32_t pa[KEYS / 16][4];   // P of a tile, as wgmma's A operand,
     uint32_t pb[KEYS / 16][4];   // in two sets that take turns
-    float acc[D / 2];            // O
+    float acc[DP / 2];           // O (at D = 96 its last 32 columns are 0)
     float m0, m1, l0, l1;
 
     // S = q k^T for the K tile of ring slot r: 64 x 128 logits, unscaled,
@@ -727,7 +760,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       const int ntiles = causal ? qi + 1 : s / KEYS;
       const bool last_item = item(it + 1) >= items;
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+      for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
       m0 = m1 = NEG_INF;
       l0 = l1 = 0.f;
       float alpha0, alpha1;
@@ -764,8 +797,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         wgmma_wait_all();
         fence_regs(acc);
         if (tid == 0) bar_arrive(v_empty + 8 * ((r - 1) % STAGES));
+        // every accumulator, D = 96's zero columns too: their registers
+        // then live as D = 128's
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DP / 8; ++j) {
           acc[4 * j + 0] *= alpha0;
           acc[4 * j + 1] *= alpha0;
           acc[4 * j + 2] *= alpha1;
@@ -803,8 +838,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       const float d0 = fmaxf(quad_sum(l0), 1e-30f);
       const float d1 = fmaxf(quad_sum(l1), 1e-30f);
       named_sync(1 + wg);  // the last item's copy-out has read the rows
+      // every accumulator is staged, D = 96's zero columns too (into the
+      // atoms' unused half): all of O's registers are then read as at
+      // D = 128, and the copy-out stores D columns
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DP / 8; ++j) {
         const int a = j / 8, ch = j % 8;
         const int ra = r0, rb = r0 + 8;
         *reinterpret_cast<uint32_t*>(stage + a * ATOM + ra * 128 +
@@ -861,7 +899,7 @@ EncodeTiled encoder() {
 
 // The tensor map of a (B, H, S, D) bf16 tensor with element strides (sb,
 // sh, ss) and a unit last stride, read in [128 rows x 64 columns] boxes,
-// 128-byte swizzled.
+// 128-byte swizzled; a box that reaches past column d is filled with zeros.
 int make_map(CUtensorMap* map, const void* ptr, int b, int h, int s, int d,
              long long sb, long long sh, long long ss) {
   EncodeTiled enc = encoder();
@@ -932,6 +970,8 @@ extern "C" int flash_attention_launch(
     if (s / BQ > 65535) return (int)cudaErrorInvalidValue;
     if (d == 64)
       return launch<float, 64>(q, k, v, o, b, hq, hkv, s, causal, scale, st);
+    if (d == 96)
+      return launch<float, 96>(q, k, v, o, b, hq, hkv, s, causal, scale, st);
     if (d == 128)
       return launch<float, 128>(q, k, v, o, b, hq, hkv, s, causal, scale,
                                 st);
@@ -942,6 +982,9 @@ extern "C" int flash_attention_launch(
     if (x <= 0 || x % 8 != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && d == 64)
     return tc::launch<64>(q, k, v, o, b, hq, hkv, s, strides, causal, scale,
+                          st);
+  if (dtype == 1 && d == 96)
+    return tc::launch<96>(q, k, v, o, b, hq, hkv, s, strides, causal, scale,
                           st);
   if (dtype == 1 && d == 128)
     return tc::launch<128>(q, k, v, o, b, hq, hkv, s, strides, causal, scale,

@@ -115,21 +115,24 @@ def engine_from_arrays(program: VertexProgram, config: EngineConfig,
 def lm_params_from_arrays(cfg: ArchConfig, tree: dict, device="cuda"):
     """The port's decoder (:class:`repro_torch.models.model.Model`) holding
     the reference's parameter pytree ``tree`` (numpy leaves, the
-    reference's names: ``embed``, ``ln_f``, ``lm_head`` where untied, and
+    reference's names: ``embed``, ``ln_f``, ``lm_head`` where untied,
     ``layers`` with every layer group the tree has, stacked: ``ln1``,
-    ``ln2``, ``attn/*``, ``ssm/*``, ``mlp/*``)."""
+    ``ln2``, ``ln_cross``, ``attn/*``, ``cross/*``, ``ssm/*``, ``mlp/*``,
+    ``moe/*``; and whisper's ``enc_layers``, stacked the same way, and
+    ``enc_ln_f``)."""
     from repro_torch.models.model import Model
     model = Model(cfg, device)
     named = dict(model.named_parameters())
-    want = {"embed": tree["embed"], "ln_f": tree["ln_f"]}
-    if "lm_head" in named:
-        want["lm_head"] = tree["lm_head"]
-    for key, leaf in tree["layers"].items():
-        groups = leaf.items() if isinstance(leaf, dict) else [(None, leaf)]
-        for sub, a in groups:
-            name = key if sub is None else f"{key}.{sub}"
-            for i in range(cfg.num_layers):
-                want[f"layers.{i}.{name}"] = a[i]
+    want = {key: tree[key] for key in ("embed", "ln_f", "lm_head",
+                                       "enc_ln_f") if key in tree}
+    for stack in ("layers", "enc_layers"):
+        for key, leaf in tree.get(stack, {}).items():
+            groups = (leaf.items() if isinstance(leaf, dict)
+                      else [(None, leaf)])
+            for sub, a in groups:
+                name = key if sub is None else f"{key}.{sub}"
+                for i in range(a.shape[0]):
+                    want[f"{stack}.{i}.{name}"] = a[i]
     if set(want) != set(named):
         raise KeyError(f"parameters differ: missing "
                        f"{sorted(set(named) - set(want))}, unexpected "

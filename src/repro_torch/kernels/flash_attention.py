@@ -8,8 +8,11 @@ the prefill and full-sequence forward: causal (or full) GQA attention with
 an online softmax, q (B, Hq, S, D) and k, v (B, Hkv, S, D), Hq % Hkv == 0,
 S % 128 == 0, f32 or bf16 in, the output contiguous in q's dtype. The
 kernel is ``repro_torch/csrc/flash_attention.cu``; its source note gives
-the design and what bounds it. It takes D in (64, 128); another head dim
-raises. Two routes:
+the design and what bounds it. It takes D in (64, 96, 128); another head
+dim raises. D = 96 (phi-3's heads) is an instantiation of each route: the
+bf16 route loads a 96-column row as two 64-column boxes whose columns past
+96 TMA fills with zeros in shared memory (no padded copy in memory), the
+f32 route gives each thread 6 output columns. Two routes:
 
 * bf16: Hopper's tensor cores. One persistent block per SM (two consumer
   warpgroups of 64 q rows and a producer warpgroup) walks (128-row q tile,
@@ -40,7 +43,7 @@ import torch
 from repro_torch.kernels import _build
 
 BLOCK = 128  # S must be a multiple of it (the reference's block, :76)
-HEAD_DIMS = (64, 128)  # the kernel's instantiations
+HEAD_DIMS = (64, 96, 128)  # the kernel's instantiations
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # csrc dtype codes
 NEG_INF = -1e30
 

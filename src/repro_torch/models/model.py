@@ -1,37 +1,49 @@
-"""The dense, SSM and hybrid decoder families: init, full-sequence forward,
-and serving (cache, prefill, decode).
+"""Every decoder family of the repo: init, full-sequence forward, and
+serving (cache, prefill, decode).
 
-The port of ``repro/models/model.py`` for ``family`` in ``dense``
-(llama3p2_1b, yi_6b, qwen3_14b, mistral_nemo_12b), ``ssm`` (mamba2_2p7b)
-and ``hybrid`` (hymba_1p5b: attention and SSM heads side by side in every
-layer, their outputs averaged). The parameters live in a :class:`Model`
-(``nn.Module``) named as the reference's tree: ``embed``, ``ln_f``,
-``lm_head`` (untied archs), and per layer ``ln1``, then as the config asks
-``attn.{wq,wk,wv,wo,q_norm,k_norm}``, ``ssm.{in_x,in_z,in_b,in_c,in_dt,
-dt_bias,a_log,d_skip,conv_w,ssm_norm,out}``, ``ln2`` and
-``mlp.{wg,wu,wd}`` (mamba2 has ``ln1`` and ``ssm`` only); the block math
-is plain functions on tensors. Master weights are f32; each matmul casts
-its weight to ``cfg.dtype`` at use, as the reference's ``.astype(cdt)``
-does, and activations stay in ``cfg.dtype`` (the SSM's dt, scan and state
-in f32, as the reference's).
+The port of ``repro/models/model.py`` for all ten configs: ``dense``
+(llama3p2_1b, yi_6b, qwen3_14b, mistral_nemo_12b), ``moe``
+(deepseek_moe_16b, granite_moe_3b_a800m: the feed-forward is
+``models/moe.py``'s routed experts, deepseek's with shared experts),
+``ssm`` (mamba2_2p7b), ``hybrid`` (hymba_1p5b: attention and SSM heads side
+by side in every layer, their outputs averaged), ``vlm`` (phi3_vision_4p2b:
+``batch["patches"]``, precomputed patch embeddings, fill the first
+positions ahead of the text) and ``audio`` (whisper_base: an encoder over
+``batch["frames"]``, precomputed frame embeddings plus fixed sinusoids,
+non-causal and without RoPE, and per decoder layer a cross-attention to
+its output). The parameters live in a :class:`Model` (``nn.Module``)
+named as the reference's tree: ``embed``, ``ln_f``, ``lm_head`` (untied
+archs), ``enc_layers`` and ``enc_ln_f`` (whisper), and per layer ``ln1``,
+then as the config asks ``attn.{wq,wk,wv,wo,q_norm,k_norm}``,
+``ssm.{in_x,in_z,in_b,in_c,in_dt,dt_bias,a_log,d_skip,conv_w,ssm_norm,
+out}``, ``ln_cross`` and ``cross.*`` (whisper's decoder), ``ln2`` and
+``mlp.{wg,wu,wd}`` or ``moe.{router,w_gate,w_up,w_down,shared_gate,
+shared_up,shared_down}`` (mamba2 has ``ln1`` and ``ssm`` only); the block
+math is plain functions on tensors. Master weights are f32; each matmul
+casts its weight to ``cfg.dtype`` at use, as the reference's
+``.astype(cdt)`` does (the MoE's whole subtree, router included, before
+the router's f32 logits), and activations stay in ``cfg.dtype`` (the SSM's
+dt, scan and state in f32, as the reference's).
 
 Entry points (the reference's, with ``use_pallas`` named ``use_kernel``):
     init_params(cfg, generator)                 -> Model (f32 masters)
     forward(params, cfg, batch)                 -> (logits, aux)
-    init_cache(cfg, batch, max_seq)             -> cache dict
+    init_cache(cfg, batch, max_seq, enc_seq)    -> cache dict
     prefill(params, cfg, batch, cache)          -> (last logits, cache)
     decode_step(params, cfg, tokens, cache)     -> (logits, cache)
 
-``use_kernel=True`` routes the prefill's and the forward's attention
-through kernel 4 (``repro_torch.kernels.flash_attention``, S a multiple of
-128) and the SSM's intra-chunk term through kernel 5
+``use_kernel=True`` routes the prefill's and the forward's (decoder
+self-) attention through kernel 4 (``repro_torch.kernels.flash_attention``,
+S a multiple of 128, patches included) and the SSM's intra-chunk term
+through kernel 5
 (``repro_torch.kernels.ssd_scan``, via ``models/ssm.py``); without it the
 reference's routes hold: ``chunked_attention`` at S >= 2048,
 ``full_attention`` below, and the SSD einsum. Decoding uses
-``decode_attention`` and ``ssd_decode_step``. The cache's K/V, SSM states
-and conv windows are updated in place and the cache dict is returned; its
-``pos`` is a Python int. The moe, vlm and audio families raise
-``NotImplementedError``, and so does ``cast_weights_once``; the reference's
+``decode_attention`` and ``ssd_decode_step``. Whisper's encoder and
+cross-attention take the plain routes always, as the reference's do. The
+cache's K/V, SSM states, conv windows and cross K/V are updated in place
+and the cache dict is returned; its ``pos`` is a Python int.
+``cast_weights_once`` raises ``NotImplementedError``; the reference's
 sharding hooks are not ported yet (ROADMAP Queue 1 items 9-10), and
 ``remat`` has no effect on inference.
 """
@@ -46,22 +58,14 @@ from torch import nn
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import flash_attention as kernel4
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
                                        rms_norm, silu, swiglu)
 
-# the ROADMAP item that ports each family the port does not serve yet
-NOT_PORTED = {"moe": "ROADMAP Queue 1 item 1c",
-              "vlm": "ROADMAP Queue 1 item 1c",
-              "audio": "ROADMAP Queue 1 item 1c"}
-
 
 def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported to "
-            f"repro_torch yet ({NOT_PORTED.get(cfg.family, 'ROADMAP')})")
     if cfg.cast_weights_once:
         # the reference casts the >= 2-D masters once per forward, outside
         # its layer scan, so that sharded gathers move bf16; eager PyTorch
@@ -124,12 +128,31 @@ class MLP(nn.Module):
         self.wd = _param(f, d, device=device)
 
 
-class DecoderLayer(nn.Module):
-    """``ln1``, then ``attn`` and/or ``ssm``, then ``ln2`` and ``mlp``
-    where the config has a feed-forward width, as the reference's
-    ``_layer_params`` builds them."""
+class MoE(nn.Module):
+    """Routed experts (``experts_eff`` of them, padded ones zero) and, where
+    the config has them, the shared experts' SwiGLU."""
 
     def __init__(self, cfg: ArchConfig, device):
+        super().__init__()
+        d, fe, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.experts_eff
+        self.router = _param(d, e, device=device)
+        self.w_gate = _param(e, d, fe, device=device)
+        self.w_up = _param(e, d, fe, device=device)
+        self.w_down = _param(e, fe, d, device=device)
+        if cfg.num_shared_experts:
+            fs = cfg.num_shared_experts * fe
+            self.shared_gate = _param(d, fs, device=device)
+            self.shared_up = _param(d, fs, device=device)
+            self.shared_down = _param(fs, d, device=device)
+
+
+class DecoderLayer(nn.Module):
+    """``ln1``, then ``attn`` and/or ``ssm``, then ``ln_cross`` and
+    ``cross`` in whisper's decoder, then ``ln2`` and ``moe`` or ``mlp``
+    where the config has experts or a feed-forward width, as the
+    reference's ``_layer_params`` builds them."""
+
+    def __init__(self, cfg: ArchConfig, device, cross: bool = False):
         super().__init__()
         d = cfg.d_model
         self.ln1 = _param(d, device=device, fill=1.0)
@@ -137,7 +160,13 @@ class DecoderLayer(nn.Module):
             self.attn = Attention(cfg, device)
         if cfg.has_ssm:
             self.ssm = SSM(cfg, device)
-        if cfg.d_ff:
+        if cross:
+            self.ln_cross = _param(d, device=device, fill=1.0)
+            self.cross = Attention(cfg, device)
+        if cfg.num_experts:
+            self.ln2 = _param(d, device=device, fill=1.0)
+            self.moe = MoE(cfg, device)
+        elif cfg.d_ff:
             self.ln2 = _param(d, device=device, fill=1.0)
             self.mlp = MLP(cfg, device)
 
@@ -153,36 +182,52 @@ class Model(nn.Module):
         self.cfg = cfg
         self.embed = _param(cfg.vocab_padded, cfg.d_model, device=device)
         self.ln_f = _param(cfg.d_model, device=device, fill=1.0)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, device, cross=cfg.is_encdec)
+            for _ in range(cfg.num_layers))
         if not cfg.tie_embeddings:
             self.lm_head = _param(cfg.d_model, cfg.vocab_padded,
                                   device=device)
+        if cfg.is_encdec:  # whisper's encoder: the decoder's widths
+            self.enc_layers = nn.ModuleList(
+                DecoderLayer(cfg, device)
+                for _ in range(cfg.encoder_layers))
+            self.enc_ln_f = _param(cfg.d_model, device=device, fill=1.0)
 
 
 def tree_param_count(cfg: ArchConfig) -> int:
     """The parameters of the reference's ``init_params`` tree for ``cfg``
-    (``_attn_params``, ``_ssm_params``, ``_layer_params``), counted from the
-    config for the dense, ssm and hybrid families: what a :class:`Model`
-    must hold. ``ArchConfig.param_count()`` is the reference's analytic
-    count: it leaves out the SSM's dt_bias, a_log, d_skip, conv_w and
-    ssm_norm, and counts an ln2 that mamba2 does not have."""
+    (``_attn_params``, ``_ssm_params``, ``_layer_params``, whisper's
+    encoder), counted from the config: what a :class:`Model` must hold.
+    ``ArchConfig.param_count()`` is the reference's analytic count: it
+    leaves out the SSM's dt_bias, a_log, d_skip, conv_w and ssm_norm, the
+    norms of the encoder and cross-attention and padded experts, and counts
+    an ln2 that mamba2 does not have."""
     d = cfg.d_model
-    layer = d  # ln1
+    attn = 0
     if cfg.has_attention:
         dh, hq, hkv = (cfg.resolved_head_dim, cfg.q_heads_eff,
                        cfg.kv_heads_eff)
-        layer += 2 * d * hq * dh + 2 * d * hkv * dh
-        layer += 2 * dh if cfg.qk_norm else 0
+        attn = 2 * d * hq * dh + 2 * d * hkv * dh
+        attn += 2 * dh if cfg.qk_norm else 0
+    layer = d + attn  # ln1, attn
     if cfg.has_ssm:
         h, n = cfg.ssm_heads, cfg.ssm_state
         din = h * cfg.ssm_head_dim
         layer += (3 * d * din + 2 * d * n + d * h + 3 * h
                   + cfg.ssm_conv_width * (din + 2 * n) + din)
-    if cfg.d_ff:
+    if cfg.num_experts:
+        fe, e = cfg.moe_d_ff or cfg.d_ff, cfg.experts_eff
+        layer += d + d * e + 3 * e * d * fe  # ln2, router, experts
+        layer += 3 * d * cfg.num_shared_experts * fe
+    elif cfg.d_ff:
         layer += d + 3 * d * cfg.d_ff
     head = cfg.vocab_padded * d * (1 if cfg.tie_embeddings else 2)
-    return cfg.num_layers * layer + head + d
+    total = cfg.num_layers * layer + head + d
+    if cfg.is_encdec:  # ln_cross and cross per decoder layer; the encoder
+        total += cfg.num_layers * (d + attn)
+        total += cfg.encoder_layers * layer + d
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -222,31 +267,61 @@ def _init_ssm(sp: SSM, cfg: ArchConfig, gen) -> None:
     sp.out.copy_(dense_init(gen, (din, d), scale=din ** -0.5))
 
 
+def _init_moe(m: MoE, cfg: ArchConfig, gen) -> None:
+    d, fe, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.experts_eff
+    m.router.copy_(dense_init(gen, (d, e)))
+    m.w_gate.copy_(dense_init(gen, (e, d, fe)))
+    m.w_up.copy_(dense_init(gen, (e, d, fe)))
+    m.w_down.copy_(dense_init(gen, (e, fe, d), scale=fe ** -0.5))
+    # padded experts are never routed: zero weights and router columns
+    real = cfg.num_experts
+    for w in (m.w_gate, m.w_up, m.w_down):
+        w[real:] = 0.0
+    m.router[:, real:] = 0.0
+    if cfg.num_shared_experts:
+        fs = cfg.num_shared_experts * fe
+        m.shared_gate.copy_(dense_init(gen, (d, fs)))
+        m.shared_up.copy_(dense_init(gen, (d, fs)))
+        m.shared_down.copy_(dense_init(gen, (fs, d), scale=fs ** -0.5))
+
+
+def _init_layer(layer: DecoderLayer, cfg: ArchConfig, gen) -> None:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.has_attention:
+        _init_attention(layer.attn, cfg, gen)
+    if cfg.has_ssm:
+        _init_ssm(layer.ssm, cfg, gen)
+    if hasattr(layer, "cross"):
+        _init_attention(layer.cross, cfg, gen)
+    if cfg.num_experts:
+        _init_moe(layer.moe, cfg, gen)
+    elif cfg.d_ff:
+        layer.mlp.wg.copy_(dense_init(gen, (d, f)))
+        layer.mlp.wu.copy_(dense_init(gen, (d, f)))
+        layer.mlp.wd.copy_(dense_init(gen, (f, d), scale=f ** -0.5))
+
+
 @torch.no_grad()
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> Model:
     """The reference's initialization, drawn from ``generator`` on its
-    device: normal embeddings at 0.02, dense weights at fan_in^-0.5, norms
-    and ``d_skip`` at one, ``wo`` at zero (the reference's skip-init, so
-    each attention sublayer adds nothing until ``wo`` moves; padded heads
-    have zero wq/wk/wv columns and wo rows), the SSM's dt bias the inverse
-    softplus of a log-uniform dt in [1e-3, 1e-1] and ``a_log`` the log of
-    a uniform A in [1, 16]."""
+    device: normal embeddings at 0.02, dense weights (routers and experts
+    too) at fan_in^-0.5, norms and ``d_skip`` at one, ``wo`` at zero (the
+    reference's skip-init, so each attention sublayer, cross-attention
+    included, adds nothing until ``wo`` moves; padded heads have zero
+    wq/wk/wv columns and wo rows, padded experts zero weights and router
+    columns), the SSM's dt bias the inverse softplus of a log-uniform dt in
+    [1e-3, 1e-1] and ``a_log`` the log of a uniform A in [1, 16]."""
     _require_ported(cfg)
     model = Model(cfg, generator.device)
-    d, f = cfg.d_model, cfg.d_ff
+    d = cfg.d_model
     model.embed.copy_(embed_init(generator, (cfg.vocab_padded, d)))
     for layer in model.layers:
-        if cfg.has_attention:
-            _init_attention(layer.attn, cfg, generator)
-        if cfg.has_ssm:
-            _init_ssm(layer.ssm, cfg, generator)
-        if cfg.d_ff:
-            layer.mlp.wg.copy_(dense_init(generator, (d, f)))
-            layer.mlp.wu.copy_(dense_init(generator, (d, f)))
-            layer.mlp.wd.copy_(dense_init(generator, (f, d),
-                                          scale=f ** -0.5))
+        _init_layer(layer, cfg, generator)
     if not cfg.tie_embeddings:
         model.lm_head.copy_(dense_init(generator, (d, cfg.vocab_padded)))
+    if cfg.is_encdec:
+        for layer in model.enc_layers:
+            _init_layer(layer, cfg, generator)
     return model
 
 
@@ -254,20 +329,28 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> Model:
 # layer forward pieces
 # --------------------------------------------------------------------------
 def _attention_block(h, ap: Attention, cfg: ArchConfig, positions,
-                     causal: bool, use_kernel: bool = False):
-    """h: (B, S, D) normed input. Returns (out, (k, v))."""
+                     causal: bool, use_kernel: bool = False,
+                     kv_override=None):
+    """h: (B, S, D) normed input. kv_override: (k, v) (B, S_kv, Hkv, Dh)
+    for cross-attention, which takes no RoPE and no k_norm; ``positions``
+    None (whisper's encoder) takes no RoPE either. Returns (out, (k, v))."""
     b, s, _ = h.shape
     dh = cfg.resolved_head_dim
     hq, hkv = cfg.q_heads_eff, cfg.kv_heads_eff
     cdt = h.dtype
     q = (h @ ap.wq.to(cdt)).reshape(b, s, hq, dh)
-    k = (h @ ap.wk.to(cdt)).reshape(b, s, hkv, dh)
-    v = (h @ ap.wv.to(cdt)).reshape(b, s, hkv, dh)
+    if kv_override is None:
+        k = (h @ ap.wk.to(cdt)).reshape(b, s, hkv, dh)
+        v = (h @ ap.wv.to(cdt)).reshape(b, s, hkv, dh)
+    else:
+        k, v = kv_override
     if cfg.qk_norm:
         q = rms_norm(q, ap.q_norm)
-        k = rms_norm(k, ap.k_norm)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+        if kv_override is None:
+            k = rms_norm(k, ap.k_norm)
+    if kv_override is None and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     if use_kernel:
         o = kernel4.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -339,14 +422,72 @@ def _mix(parts):
     return parts[0] if len(parts) == 1 else (parts[0] + parts[1]) * 0.5
 
 
-def _ffn_block(x, layer: DecoderLayer):
+def _ffn_block(x, layer: DecoderLayer, cfg: ArchConfig):
+    """The feed-forward on the normed input: the routed (and shared)
+    experts, whose whole subtree is cast to x's dtype first, as the
+    reference's, or the SwiGLU. Returns (out, aux or None)."""
     cdt = x.dtype
+    if cfg.num_experts:
+        return moe_lib.moe_ffn(
+            x, {name: p.to(cdt) for name, p in layer.moe.named_parameters()},
+            num_experts=cfg.experts_eff, top_k=cfg.experts_per_token,
+            capacity_factor=cfg.capacity_factor,
+            num_real_experts=cfg.num_experts)
     m = layer.mlp
-    return swiglu(x, m.wg.to(cdt), m.wu.to(cdt), m.wd.to(cdt))
+    return swiglu(x, m.wg.to(cdt), m.wu.to(cdt), m.wd.to(cdt)), None
 
 
 def _embed_inputs(params: Model, cfg: ArchConfig, batch) -> torch.Tensor:
-    return params.embed[batch["tokens"].long()].to(getattr(torch, cfg.dtype))
+    """Token embeddings, and for the vlm stub the patch embeddings
+    (B, P, D) ahead of them, in the compute dtype."""
+    cdt = getattr(torch, cfg.dtype)
+    x = params.embed[batch["tokens"].long()].to(cdt)
+    if cfg.num_patches and "patches" in batch:
+        x = torch.cat([batch["patches"].to(cdt), x], dim=1)
+    return x
+
+
+def _sinusoid_pos(s: int, d: int, dtype, device) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal positions (no table: any length)."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    inv = torch.exp(-(torch.arange(0, d, 2, dtype=torch.float32,
+                                   device=device) / d * math.log(10000.0)))
+    ang = pos * inv[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def encode(params: Model, cfg: ArchConfig, frames) -> torch.Tensor:
+    """Whisper's encoder: frames (B, S_enc, D) stub embeddings plus the
+    sinusoids, non-causal blocks without RoPE on the plain attention
+    routes, the final norm -> (B, S_enc, D)."""
+    cdt = getattr(torch, cfg.dtype)
+    s = frames.shape[1]
+    x = frames.to(cdt) + _sinusoid_pos(s, cfg.d_model, cdt,
+                                       frames.device)[None]
+    for layer in params.enc_layers:
+        h = rms_norm(x, layer.ln1)
+        a, _ = _attention_block(h, layer.attn, cfg, None, False)
+        x = x + a
+        x = x + _ffn_block(rms_norm(x, layer.ln2), layer, cfg)[0]
+    return rms_norm(x, params.enc_ln_f)
+
+
+def _cross_kv(layer: DecoderLayer, cfg: ArchConfig, enc_out):
+    """A decoder layer's cross-attention K and V (B, S_enc, Hkv, Dh) from
+    the encoder's output."""
+    b, se, _ = enc_out.shape
+    shape = (b, se, cfg.kv_heads_eff, cfg.resolved_head_dim)
+    cdt = enc_out.dtype
+    return ((enc_out @ layer.cross.wk.to(cdt)).reshape(shape),
+            (enc_out @ layer.cross.wv.to(cdt)).reshape(shape))
+
+
+def _cross_block(x, layer: DecoderLayer, cfg: ArchConfig, kv):
+    """x plus its cross-attention to the encoder's K/V ``kv`` (the plain
+    route: non-causal, no RoPE)."""
+    c, _ = _attention_block(rms_norm(x, layer.ln_cross), layer.cross, cfg,
+                            None, False, kv_override=kv)
+    return x + c
 
 
 def _logits(params: Model, cfg: ArchConfig, x) -> torch.Tensor:
@@ -356,12 +497,15 @@ def _logits(params: Model, cfg: ArchConfig, x) -> torch.Tensor:
 
 
 def _layers(params: Model, cfg: ArchConfig, x, use_kernel: bool,
-            cache: dict | None = None) -> torch.Tensor:
+            cache: dict | None = None, enc_out=None):
     """The decoder stack over a full sequence from position 0; with a cache
-    it also writes each layer's K/V at [0, S), SSM state and conv window."""
+    it also writes each layer's K/V at [0, S), SSM state and conv window,
+    and cross K/V. ``enc_out``: whisper's encoder output. Returns (x, the
+    MoE layers' aux dicts)."""
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
     k_conv = cfg.ssm_conv_width - 1
+    auxes = []
     for i, layer in enumerate(params.layers):
         h = rms_norm(x, layer.ln1)
         parts = []
@@ -379,9 +523,23 @@ def _layers(params: Model, cfg: ArchConfig, x, use_kernel: bool,
                 cache["conv"][i].copy_(conv_in[:, -k_conv:])
             parts.append(sout)
         x = x + _mix(parts)
-        if cfg.d_ff:
-            x = x + _ffn_block(rms_norm(x, layer.ln2), layer)
-    return x
+        if enc_out is not None:
+            kv = _cross_kv(layer, cfg, enc_out)
+            if cache is not None:
+                cache["cross_k"][i].copy_(kv[0])
+                cache["cross_v"][i].copy_(kv[1])
+            x = _cross_block(x, layer, cfg, kv)
+        if cfg.num_experts or cfg.d_ff:
+            y, aux = _ffn_block(rms_norm(x, layer.ln2), layer, cfg)
+            x = x + y
+            if aux is not None:
+                auxes.append(aux)
+    return x, auxes
+
+
+def _encoded(params: Model, cfg: ArchConfig, batch):
+    """Whisper's encoder output for ``batch["frames"]``, else None."""
+    return encode(params, cfg, batch["frames"]) if cfg.is_encdec else None
 
 
 # --------------------------------------------------------------------------
@@ -392,23 +550,33 @@ def forward(params: Model, cfg: ArchConfig, batch, use_kernel: bool = False,
     """Returns (logits (B, S, V), aux dict). ``remat`` is accepted and has
     no effect here."""
     _require_ported(cfg)
-    x = _layers(params, cfg, _embed_inputs(params, cfg, batch), use_kernel)
+    x, auxes = _layers(params, cfg, _embed_inputs(params, cfg, batch),
+                       use_kernel, enc_out=_encoded(params, cfg, batch))
     logits = _logits(params, cfg, x)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"lb_loss": zero, "z_loss": zero,
-           "expert_load": torch.zeros(1, device=x.device)}
+    if auxes:  # the MoE layers': means of the losses, the summed loads
+        aux = {"lb_loss": torch.stack([a["lb_loss"] for a in auxes]).mean(),
+               "z_loss": torch.stack([a["z_loss"] for a in auxes]).mean(),
+               "expert_load": torch.stack([a["expert_load"]
+                                           for a in auxes]).sum(0)}
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = {"lb_loss": zero, "z_loss": zero,
+               "expert_load": torch.zeros(1, device=x.device)}
     return logits, aux
 
 
 # --------------------------------------------------------------------------
 # serving: cache init / prefill / decode
 # --------------------------------------------------------------------------
-def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, enc_seq: int = 0,
                device="cuda") -> dict:
     """Zero caches on ``device`` (the card unless the caller asks for the
     CPU): K/V (L, B, max_seq, Hkv, Dh) in ``cfg.dtype`` where the family
     has attention; SSM states (L, B, H, P, N) in f32 and conv windows
-    (L, B, K-1, H*P + 2N) in ``cfg.dtype`` where it has an SSM."""
+    (L, B, K-1, H*P + 2N) in ``cfg.dtype`` where it has an SSM; cross K/V
+    (L, B, enc_seq, Hkv, Dh) in ``cfg.dtype`` for whisper, where
+    ``enc_seq`` is the frames' length. ``max_seq`` counts every position
+    the prefill writes: a vlm's patches too."""
     _require_ported(cfg)
     device = resolve_device(device)
     cdt = getattr(torch, cfg.dtype)
@@ -427,18 +595,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
         cache["conv"] = torch.zeros(
             (nl, batch, cfg.ssm_conv_width - 1, conv_ch), dtype=cdt,
             device=device)
+    if cfg.is_encdec:
+        shape = (nl, batch, enc_seq, cfg.kv_heads_eff,
+                 cfg.resolved_head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=cdt, device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=cdt, device=device)
     return cache
 
 
 @torch.no_grad()
 def prefill(params: Model, cfg: ArchConfig, batch, cache: dict,
             use_kernel: bool = False):
-    """Full-sequence prefill that also fills the cache (K/V at [0, S), SSM
-    states and conv windows). Returns (last-position logits (B, V),
-    cache)."""
+    """Full-sequence prefill that also fills the cache (K/V at [0, S), S
+    counting a vlm's patches, SSM states and conv windows, whisper's cross
+    K/V). Returns (last-position logits (B, V), cache)."""
     _require_ported(cfg)
-    x = _layers(params, cfg, _embed_inputs(params, cfg, batch), use_kernel,
-                cache)
+    x, _ = _layers(params, cfg, _embed_inputs(params, cfg, batch),
+                   use_kernel, cache, enc_out=_encoded(params, cfg, batch))
     cache["pos"] = x.shape[1]
     return _logits(params, cfg, x[:, -1]), cache
 
@@ -476,7 +649,10 @@ def decode_step(params: Model, cfg: ArchConfig, tokens, cache: dict):
                                      cache["ssm_state"][i],
                                      cache["conv"][i]))
         x = x + _mix(parts)
-        if cfg.d_ff:
-            x = x + _ffn_block(rms_norm(x, layer.ln2), layer)
+        if cfg.is_encdec:
+            x = _cross_block(x, layer, cfg,
+                             (cache["cross_k"][i], cache["cross_v"][i]))
+        if cfg.num_experts or cfg.d_ff:
+            x = x + _ffn_block(rms_norm(x, layer.ln2), layer, cfg)[0]
     cache["pos"] = pos + 1
     return _logits(params, cfg, x[:, 0]), cache

@@ -501,15 +501,16 @@ def test_distributed_on_card_matches_cpu(card, prog):
 
 
 @pytest.mark.parametrize("arch", ["llama3p2_1b", "yi_6b", "qwen3_14b",
-                                  "mistral_nemo_12b"])
+                                  "mistral_nemo_12b", "phi3_vision_4p2b"])
 @pytest.mark.parametrize("s", [128, 512, 2048])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_plain(card, arch, s, causal, dtype):
     """Kernel 4 against its plain version on the card, on the same inputs,
-    at the archs' head shapes: f32 (the CUDA-core route) at 2e-5, the plain
-    version's matmuls in full f32, no TF32; bf16 (the tensor-core route) at
-    2e-2."""
+    at the archs' head shapes (phi3_vision_4p2b's 32/32 heads of 96: the
+    D = 96 instantiation of both routes): f32 (the CUDA-core route) at
+    2e-5, the plain version's matmuls in full f32, no TF32; bf16 (the
+    tensor-core route) at 2e-2."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as FA
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -548,7 +549,7 @@ def test_flash_attention_takes_views_and_refuses_other_head_dims(card):
         FA.flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_reads_strided_bf16(card, d, causal):
     """The tensor-core route reads q, k and v through their strides: the
@@ -567,6 +568,34 @@ def test_flash_attention_reads_strided_bf16(card, d, causal):
     plain = FA.flash_attention_ref(*views, causal=causal)
     torch.testing.assert_close(got.float(), plain.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_d96_on_views(card, causal, dtype):
+    """Kernel 4 at D = 96 on the model's transposed (B, S, H, D) views, an
+    odd GQA group (12 q heads over 4 kv heads) and S = 640, past four
+    128-key tiles: both routes against the plain version (f32 2e-5, bf16
+    2e-2), the bf16 route bitwise its own contiguous call's, and no launch
+    at D = 96 falls back on another head dim's instantiation."""
+    from repro_torch.kernels import flash_attention as FA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    gen = torch.Generator(device="cuda").manual_seed(96 + causal)
+    views = [torch.randn(2, 640, h, 96, generator=gen, device="cuda").to(
+        getattr(torch, dtype)).transpose(1, 2) for h in (12, 4, 4)]
+    n0 = FA.flash_attention.launches
+    got = FA.flash_attention(*views, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == n0 + 1
+    assert got.shape == (2, 12, 640, 96) and got.is_contiguous()
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(
+        got.float(), FA.flash_attention_ref(*views, causal=causal).float(),
+        rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        assert torch.equal(got, FA.flash_attention(
+            *(t.contiguous() for t in views), causal=causal))
 
 
 @pytest.mark.parametrize("arch", ["llama3p2_1b", "qwen3_14b"])
@@ -718,6 +747,73 @@ def test_ssm_prefill_with_kernel_matches_plain_route(card, arch):
         assert SSD.ssd_intra_chunk.launches - n5 == want
         assert FA.flash_attention.launches - n4 == (
             want if cfg.has_attention else 0)
+    (lk, ck), (lp, cp) = out[True], out[False]
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
+    for key in set(ck) - {"pos"}:
+        torch.testing.assert_close(ck[key], cp[key], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "deepseek_moe_16b",
+                                  "phi3_vision_4p2b", "whisper_base"])
+def test_new_family_prefill_with_kernel_matches_plain_route(card, arch):
+    """prefill(use_kernel=True) against prefill(use_kernel=False) on the
+    card for the moe, vlm and audio families, a reduced config in f32 at
+    head_dim 64 (96 for phi3_vision_4p2b, its own) with every wo drawn
+    nonzero: kernel 4 launched once per decoder layer (whisper's encoder
+    and cross-attention take the plain routes), the logits and caches
+    within 1e-4, the MoE's routes equal."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.reduced(configs.get(arch))
+    d = 96 if cfg.num_patches else 64
+    cfg = dataclasses.replace(cfg, head_dim=d, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = M.init_params(cfg, gen)
+    blocks = [layer.attn for layer in params.layers]
+    if cfg.is_encdec:
+        blocks += [layer.cross for layer in params.layers]
+        blocks += [layer.attn for layer in params.enc_layers]
+    with torch.no_grad():
+        for block in blocks:
+            block.wo.normal_(0.0, (cfg.num_heads * d) ** -0.5,
+                             generator=gen)
+    p = cfg.num_patches
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 256 - p),
+                                     generator=gen, device="cuda")}
+    if p:
+        batch["patches"] = torch.randn(2, p, cfg.d_model, generator=gen,
+                                       device="cuda")
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(2, 100, cfg.d_model, generator=gen,
+                                      device="cuda")
+    out, routes = {}, {}
+    real_route = moe.route
+    for use_kernel in (True, False):
+        calls = []
+
+        def route(*args, **kw):
+            r = real_route(*args, **kw)
+            calls.append(r[3])
+            return r
+        moe.route = route
+        try:
+            cache = M.init_cache(cfg, 2, 260, enc_seq=100)
+            n0 = FA.flash_attention.launches
+            out[use_kernel] = M.prefill(params, cfg, batch, cache,
+                                        use_kernel=use_kernel)
+        finally:
+            moe.route = real_route
+        routes[use_kernel] = calls
+        assert FA.flash_attention.launches - n0 == (
+            cfg.num_layers if use_kernel else 0)
+    assert len(routes[True]) == (cfg.num_layers if cfg.num_experts else 0)
+    for a, b in zip(routes[True], routes[False]):
+        assert torch.equal(a, b)
     (lk, ck), (lp, cp) = out[True], out[False]
     torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
     for key in set(ck) - {"pos"}:

@@ -1,14 +1,18 @@
 """The port's decoders against the reference's, on shared weights.
 
-Both packages run the four dense archs, ``mamba2_2p7b`` (ssm) and
-``hymba_1p5b`` (hybrid) at ``configs.reduced`` on the same parameters: the
-reference's ``init_params`` as numpy, handed to the port by
+Both packages run all ten archs at ``configs.reduced`` on the same
+parameters: the four dense ones, ``mamba2_2p7b`` (ssm), ``hymba_1p5b``
+(hybrid), the two MoE archs, ``phi3_vision_4p2b`` (vlm: seeded patch
+embeddings ahead of the text) and ``whisper_base`` (audio: seeded frame
+embeddings, ``ENC_S`` of them, through the encoder); the reference's
+``init_params`` as numpy, handed to the port by
 ``repro_torch.interop.lm_params_from_arrays``. The reference initializes
 every ``wo`` to zero (its skip-init), and then the attention sublayer adds
 nothing to the residual stream: logits would agree whatever attention,
 RoPE, the kernel or the KV cache computed. So every layer's ``wo`` is
-redrawn here as seeded normals at scale (Hq * Dh)^-0.5, and one test shows
-that attention then reaches the logits. The bar (ROADMAP fact 4):
+redrawn here as seeded normals at scale (Hq * Dh)^-0.5 (whisper's encoder
+and cross-attention too), and one test shows that attention then reaches
+the logits. The bar (ROADMAP fact 4):
 
 * logits at the reduced config's bf16: rtol=atol=5e-2 (the reference's own
   tolerance, ``tests/test_models.py``); with ``dtype="float32"``: 1e-4. In
@@ -21,14 +25,18 @@ that attention then reaches the logits. The bar (ROADMAP fact 4):
   (``SPREAD``) the compiled check's atol is widened by the reference's own
   spread between its two executions, measured on the same inputs
   (llama3p2_1b, qwen3_14b and mamba2_2p7b: the port is bitwise the
-  op-by-op reference);
+  op-by-op reference); the MoE archs are there too, where the compiled
+  reference's routing flips against its own op-by-op one;
 * ``forward`` on the plain route, ``forward(use_kernel=True)`` at S = 128
   against the reference's ``use_pallas=True`` (Pallas in interpret mode;
   the reference's SSM has no kernel route, so the port's kernel-5 route is
   held against its einsum), ``prefill`` + ``decode_step`` logits and
-  caches (K/V, SSM states, conv windows), and, inside the port, prefill +
-  decode against ``forward``;
-* exact head padding (qwen3_14b): padded logits equal unpadded bitwise.
+  caches (K/V, SSM states, conv windows, cross K/V), and, inside the
+  port, prefill + decode against ``forward`` (MoE at the capacity factor
+  E / k, where nothing drops: a forward routes more tokens per group than
+  a prefill, at another capacity);
+* exact head padding (qwen3_14b) and expert padding (granite_moe_3b_a800m):
+  padded logits equal unpadded bitwise.
 """
 import contextlib
 import dataclasses
@@ -50,16 +58,27 @@ from repro_torch.models.config import ArchConfig
 
 DENSE = ["llama3p2_1b", "yi_6b", "qwen3_14b", "mistral_nemo_12b"]
 SSM = ["mamba2_2p7b", "hymba_1p5b"]
-MODELS = DENSE + SSM
-OTHERS = ["deepseek_moe_16b", "granite_moe_3b_a800m", "phi3_vision_4p2b",
-          "whisper_base"]
+MOE = ["deepseek_moe_16b", "granite_moe_3b_a800m"]
+NEW = MOE + ["phi3_vision_4p2b", "whisper_base"]
+MODELS = DENSE + SSM + NEW
+ENC_S = 24  # whisper's frames in these tests: another length than the text
+# the reference's init_params tree at the published configs (jax.eval_shape)
+TREE_COUNTS = {"granite_moe_3b_a800m": 3380577792,
+               "deepseek_moe_16b": 16879568896,
+               "phi3_vision_4p2b": 3825404928, "whisper_base": 111165440,
+               "mamba2_2p7b": 2704590336, "hymba_1p5b": 1395924896}
 TOL = {"bfloat16": dict(rtol=5e-2, atol=5e-2),
        "float32": dict(rtol=1e-4, atol=1e-4)}
 
 
 # archs whose compiled bf16 reference is held at the bar widened by its
-# spread from the op-by-op reference (see the module note)
-SPREAD = {"hymba_1p5b"}
+# spread from the op-by-op reference (see the module note). The MoE archs:
+# at S = 128 through the kernel route the compiled reference routes a
+# token or two of layer 2 to another expert than its own op-by-op
+# execution does (bf16 activations an ulp apart at a near tie), 0.27
+# (deepseek) and 0.80 (granite) apart on the logits, where the port picks
+# the op-by-op reference's experts and is within 0.016-0.031 of it
+SPREAD = {"hymba_1p5b", "deepseek_moe_16b", "granite_moe_3b_a800m"}
 
 
 def _executions(dtype):
@@ -97,17 +116,22 @@ def _port_cfg(cfg):
 def _tree(cfg, seed=1):
     """The reference's parameters as numpy, with every layer's wo redrawn
     as seeded normals at scale (Hq * Dh)^-0.5 (padded rows kept zero)
-    where the arch has attention."""
+    where the arch has attention: self-attention's, and whisper's
+    cross-attention's and encoder's."""
     tree = jax.tree.map(np.asarray, JM.init_params(cfg,
                                                    jax.random.PRNGKey(seed)))
     tree = jax.tree.map(np.array, tree)  # writable copies
     if not cfg.has_attention:
         return tree
     dh = cfg.resolved_head_dim
-    wo = tree["layers"]["attn"]["wo"]
     rng = np.random.default_rng(seed + 100)
-    wo[...] = rng.normal(size=wo.shape) * (cfg.q_heads_eff * dh) ** -0.5
-    wo[:, cfg.num_heads * dh:, :] = 0.0
+    for stack, group in (("layers", "attn"), ("layers", "cross"),
+                         ("enc_layers", "attn")):
+        if group not in tree.get(stack, {}):
+            continue
+        wo = tree[stack][group]["wo"]
+        wo[...] = rng.normal(size=wo.shape) * (cfg.q_heads_eff * dh) ** -0.5
+        wo[:, cfg.num_heads * dh:, :] = 0.0
     return tree
 
 
@@ -121,6 +145,29 @@ def _tokens(cfg, b=2, s=32, seed=0):
                                                 dtype=np.int32)
 
 
+def _extras(cfg, b=2, seed=3):
+    """The stubs' inputs as f32 numpy: the vlm's patch embeddings and
+    whisper's frame embeddings (ENC_S of them); each model casts them to
+    its compute dtype."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.num_patches:
+        out["patches"] = rng.normal(size=(b, cfg.num_patches, cfg.d_model))
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(size=(b, ENC_S, cfg.d_model))
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
+def _jbatch(tok, extras):
+    return {"tokens": jnp.asarray(tok),
+            **{k: jnp.asarray(v) for k, v in extras.items()}}
+
+
+def _tbatch(tok, extras):
+    return {"tokens": torch.from_numpy(tok),
+            **{k: torch.from_numpy(v) for k, v in extras.items()}}
+
+
 def _np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
@@ -132,17 +179,21 @@ def _np(x):
 def test_forward_matches_reference(name, dtype):
     cfg = _cfg(name, dtype)
     jp, tp = _both(cfg, _tree(cfg))
-    tok = _tokens(cfg)
-    want = {}
+    tok, extras = _tokens(cfg), _extras(cfg)
+    want, jaux = {}, {}
     for label, run in _executions(dtype):
         with run():
-            want[label], _ = JM.forward(jp, cfg, {"tokens": jnp.asarray(tok)},
-                                        remat=False)
-    got, aux = TM.forward(tp, _port_cfg(cfg),
-                          {"tokens": torch.from_numpy(tok)})
-    assert got.shape == (2, 32, cfg.vocab_padded)
+            want[label], jaux[label] = JM.forward(
+                jp, cfg, _jbatch(tok, extras), remat=False)
+    got, aux = TM.forward(tp, _port_cfg(cfg), _tbatch(tok, extras))
+    assert got.shape == (2, 32 + cfg.num_patches, cfg.vocab_padded)
     assert got.dtype == getattr(torch, dtype)
-    assert float(aux["lb_loss"]) == 0.0
+    if not cfg.num_experts:
+        assert float(aux["lb_loss"]) == 0.0
+    for key in ("lb_loss", "z_loss", "expert_load"):
+        # the router's statistics in f32 on each side's bf16 activations
+        _assert_close(name, "float32" if cfg.num_experts == 0 else dtype,
+                      aux[key], {"compiled": jaux["compiled"][key]})
     _assert_close(name, dtype, got, want)
 
 
@@ -154,34 +205,40 @@ def test_kernel_route_matches_reference(name, dtype):
     interpreted; its SSM stays on the einsum), at S = 128."""
     cfg = _cfg(name, dtype)
     jp, tp = _both(cfg, _tree(cfg))
-    tok = _tokens(cfg, s=128)
-    want, _ = JM.forward(jp, cfg, {"tokens": jnp.asarray(tok)},
-                         use_pallas=True, remat=False)
-    got, _ = TM.forward(tp, _port_cfg(cfg), {"tokens": torch.from_numpy(tok)},
+    tok, extras = _tokens(cfg, s=128 - cfg.num_patches), _extras(cfg)
+    want = {}
+    for label, run in _executions(dtype):
+        with run():
+            want[label], _ = JM.forward(jp, cfg, _jbatch(tok, extras),
+                                        use_pallas=True, remat=False)
+    got, _ = TM.forward(tp, _port_cfg(cfg), _tbatch(tok, extras),
                         use_kernel=True)
-    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    assert got.shape[1] == 128
+    _assert_close(name, dtype, got, want)
 
 
 @pytest.mark.parametrize("name", MODELS)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_serving_matches_reference(name, dtype):
-    """prefill of 16 tokens, then decode steps fed the true next tokens:
-    every step's logits and the final caches against the reference's."""
+    """prefill of 16 tokens (behind the vlm's patches), then decode steps
+    fed the true next tokens: every step's logits and the final caches
+    (whisper's cross K/V too) against the reference's."""
     cfg = _cfg(name, dtype)
     pcfg = _port_cfg(cfg)
     jp, tp = _both(cfg, _tree(cfg))
-    tok = _tokens(cfg)
-    half, s = 16, 32
+    tok, extras = _tokens(cfg), _extras(cfg)
+    half, s, p = 16, 32, cfg.num_patches
+    enc = ENC_S if cfg.is_encdec else 0
     runs = _executions(dtype)
-    jc = {label: JM.init_cache(cfg, 2, s) for label, _ in runs}
+    jc = {label: JM.init_cache(cfg, 2, p + s, enc_seq=enc)
+          for label, _ in runs}
     jl = {}
-    tc = TM.init_cache(pcfg, 2, s, device="cpu")
+    tc = TM.init_cache(pcfg, 2, p + s, enc_seq=enc, device="cpu")
     for label, run in runs:
         with run():
             jl[label], jc[label] = JM.prefill(
-                jp, cfg, {"tokens": jnp.asarray(tok[:, :half])}, jc[label])
-    tl, tc = TM.prefill(tp, pcfg, {"tokens": torch.from_numpy(tok[:, :half])},
-                        tc)
+                jp, cfg, _jbatch(tok[:, :half], extras), jc[label])
+    tl, tc = TM.prefill(tp, pcfg, _tbatch(tok[:, :half], extras), tc)
     _assert_close(name, dtype, tl, jl)
     decode = jax.jit(lambda p, x, c: JM.decode_step(p, cfg, x, c))
     for t in range(half, s):
@@ -193,7 +250,7 @@ def test_serving_matches_reference(name, dtype):
                                 tc)
         _assert_close(name, dtype, tl, jl)
     for label, _ in runs:
-        assert tc["pos"] == int(jc[label]["pos"]) == s
+        assert tc["pos"] == int(jc[label]["pos"]) == p + s
         assert set(tc) == set(jc[label])
     for key in set(tc) - {"pos"}:
         assert tc[key].dtype == (torch.float32 if key == "ssm_state"
@@ -206,19 +263,26 @@ def test_serving_matches_reference(name, dtype):
 def test_decode_matches_forward(name):
     """Inside the port: prefill + decode token by token equals the
     full-sequence forward (the reference's test_decode_matches_forward,
-    with attention live)."""
-    cfg = _port_cfg(_cfg(name))
-    tp = lm_params_from_arrays(cfg, _tree(_cfg(name)), device="cpu")
-    tok = torch.from_numpy(_tokens(cfg))
-    full, _ = TM.forward(tp, cfg, {"tokens": tok})
-    half, s = 16, 32
-    cache = TM.init_cache(cfg, 2, s, device="cpu")
-    lg, cache = TM.prefill(tp, cfg, {"tokens": tok[:, :half]}, cache)
-    np.testing.assert_allclose(_np(lg), _np(full[:, half - 1]), **TOL[
+    with attention live). MoE runs at capacity factor E / k, where no
+    assignment drops: at 1.25 the forward's groups (all 32 tokens) get
+    another capacity than the prefill's (16), so other tokens drop."""
+    cfg = _cfg(name)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    tp = lm_params_from_arrays(_port_cfg(cfg), _tree(cfg), device="cpu")
+    cfg = _port_cfg(cfg)
+    tok, extras = _tokens(cfg), _extras(cfg)
+    full, _ = TM.forward(tp, cfg, _tbatch(tok, extras))
+    half, s, p = 16, 32, cfg.num_patches
+    cache = TM.init_cache(cfg, 2, p + s, enc_seq=ENC_S, device="cpu")
+    lg, cache = TM.prefill(tp, cfg, _tbatch(tok[:, :half], extras), cache)
+    np.testing.assert_allclose(_np(lg), _np(full[:, p + half - 1]), **TOL[
         "bfloat16"])
+    tok = torch.from_numpy(tok)
     for t in range(half, s - 1):
         lg, cache = TM.decode_step(tp, cfg, tok[:, t:t + 1], cache)
-        np.testing.assert_allclose(_np(lg), _np(full[:, t]),
+        np.testing.assert_allclose(_np(lg), _np(full[:, p + t]),
                                    **TOL["bfloat16"])
 
 
@@ -276,6 +340,36 @@ def test_structural_padding_is_exact():
                                              device="cpu"),
                        _port_cfg(cfgp), tok)
     assert torch.equal(l0, l1)
+
+
+def test_structural_expert_padding_is_exact():
+    """Zero-padded experts change nothing (the reference's
+    test_structural_padding_is_exact for granite_moe_3b_a800m at
+    pad_experts_to=6): padded experts are outside the routing, so the
+    padded logits equal the unpadded ones bit for bit."""
+    cfg = _cfg("granite_moe_3b_a800m")
+    cfgp = dataclasses.replace(cfg, pad_experts_to=6)
+    a = _tree(cfg)
+    b = jax.tree.map(np.array, jax.tree.map(
+        np.asarray, JM.init_params(cfgp, jax.random.PRNGKey(0))))
+    e = cfg.num_experts
+    for key in ("w_gate", "w_up", "w_down"):
+        b["layers"]["moe"][key][:, :e] = a["layers"]["moe"][key]
+    b["layers"]["moe"]["router"][:, :, :e] = a["layers"]["moe"]["router"]
+    for key in ("embed", "ln_f", "lm_head"):
+        b[key] = a[key]
+    for key in ("ln1", "ln2", "attn"):
+        b["layers"][key] = a["layers"][key]
+    tok = {"tokens": torch.from_numpy(_tokens(cfg))}
+    l0, aux0 = TM.forward(lm_params_from_arrays(_port_cfg(cfg), a,
+                                                device="cpu"),
+                          _port_cfg(cfg), tok)
+    l1, aux1 = TM.forward(lm_params_from_arrays(_port_cfg(cfgp), b,
+                                                device="cpu"),
+                          _port_cfg(cfgp), tok)
+    assert torch.equal(l0, l1)
+    assert torch.equal(aux1["expert_load"][:e], aux0["expert_load"])
+    assert not aux1["expert_load"][e:].any()
 
 
 def test_init_params_matches_the_reference_layout():
@@ -344,31 +438,78 @@ def test_ssm_init_params_match_the_reference_layout(name):
     assert hasattr(model.layers[0], "mlp") == bool(cfg.d_ff)
 
 
+@pytest.mark.parametrize("name", NEW)
+def test_new_family_init_params_match_the_reference_layout(name):
+    """The port's own init_params for the moe, vlm and audio families: the
+    reference's names and shapes (routers, experts, shared experts,
+    whisper's encoder and cross-attention; granite with two padded
+    experts), seeded draws, every wo (cross and encoder too) at zero,
+    padded experts zero with zero router columns, norms at one."""
+    cfg = _cfg(name)
+    if cfg.num_experts and not cfg.num_shared_experts:
+        cfg = dataclasses.replace(cfg, pad_experts_to=6)
+    pcfg = _port_cfg(cfg)
+    model = TM.init_params(pcfg, torch.Generator().manual_seed(0))
+    again = dict(TM.init_params(pcfg, torch.Generator().manual_seed(0))
+                 .named_parameters())
+    ref = JM.init_params(cfg, jax.random.PRNGKey(0))
+    named = dict(model.named_parameters())
+    want = {k: ref[k] for k in ("embed", "ln_f", "lm_head", "enc_ln_f")
+            if k in ref}
+    for stack in ("layers", "enc_layers"):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(
+                ref.get(stack, {}))[0]:
+            keys = ".".join(p.key for p in path)
+            for i in range(leaf.shape[0]):
+                want[f"{stack}.{i}.{keys}"] = leaf[i]
+    assert set(named) == set(want)
+    for n, p in named.items():
+        assert tuple(p.shape) == want[n].shape, n
+        assert torch.equal(p, again[n]), n
+        if n.endswith(".wo"):
+            assert not p.any(), n
+        if n.split(".")[-1].startswith("ln"):
+            assert torch.all(p == 1), n
+    if cfg.num_experts:
+        e = cfg.num_experts
+        for layer in model.layers:
+            m = layer.moe
+            for w in (m.w_gate, m.w_up, m.w_down):
+                assert not w[e:].any() and w[:e].abs().sum() > 0
+            assert not m.router[:, e:].any()
+            assert hasattr(m, "shared_gate") == bool(cfg.num_shared_experts)
+    assert sum(p.numel() for p in model.parameters()) == \
+        TM.tree_param_count(pcfg)
+
+
 @pytest.mark.parametrize("name", ["llama3p2_1b", "qwen3_14b",
-                                  "mamba2_2p7b", "hymba_1p5b"])
+                                  "mamba2_2p7b", "hymba_1p5b"] + NEW)
 def test_reference_param_count_is_the_reference_tree(name):
     """``tree_param_count`` (the full-size models' count check on the card)
     equals the size of the reference's init_params tree at the published
     config, and the port's Model holds that many at the
-    reduced one; ``param_count()`` (analytic) misses the SSM's vectors."""
+    reduced one; ``param_count()`` (analytic) misses the SSM's vectors and
+    whisper's encoder and cross-attention norms."""
     cfg = JC.get(name)
     shapes = jax.eval_shape(lambda: JM.init_params(cfg,
                                                    jax.random.PRNGKey(0)))
     total = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
     assert TM.tree_param_count(_port_cfg(cfg)) == total
-    want = {"mamba2_2p7b": 2704590336, "hymba_1p5b": 1395924896}
-    if name in want:
-        assert total == want[name] != cfg.param_count()
+    if name in TREE_COUNTS:
+        assert total == TREE_COUNTS[name]
+    if name in SSM + ["whisper_base"]:
+        assert total != cfg.param_count()
     small = _port_cfg(_cfg(name))
     model = TM.Model(small, device="cpu")
     assert sum(p.numel() for p in model.parameters()) == \
         TM.tree_param_count(small)
 
 
-@pytest.mark.parametrize("name", SSM)
+@pytest.mark.parametrize("name", SSM + NEW)
 def test_cache_specs_match_reference(name):
     """The SSM families' caches: ssm_state in f32, conv windows (and K/V
-    for hymba) in the compute dtype, the reference's shapes."""
+    for hymba) in the compute dtype, the reference's shapes; whisper's
+    cross K/V of enc_seq = the sequence length, as the reference's."""
     got = TC.cache_specs(TC.reduced(TC.get(name)), TC.SHAPES["decode_32k"],
                          concrete=True, batch_override=2, seq_override=16,
                          device="cpu")
@@ -416,18 +557,43 @@ def test_serve_generates_ssm_families(name, prompt_len):
     assert out.shape == (4, 3)
 
 
-@pytest.mark.parametrize("name", OTHERS)
-def test_other_families_raise(name):
-    cfg = TC.reduced(TC.get(name))
-    tok = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
-    calls = [lambda: TM.init_params(cfg, torch.Generator()),
-             lambda: TM.init_cache(cfg, 1, 8, device="cpu"),
-             lambda: TM.forward(None, cfg, tok),
-             lambda: TM.prefill(None, cfg, tok, {}),
-             lambda: TM.decode_step(None, cfg, tok["tokens"], {})]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            call()
+@pytest.mark.parametrize("name", NEW)
+def test_serve_generates_new_families(name):
+    """``serve.generate`` with use_kernel for the moe, vlm and audio
+    families on shared f32 weights picks the reference flow's tokens (its
+    prefill with ``use_pallas``, then decode_step, on a cache that holds
+    the vlm's patches: the reference launcher's own cache is too short for
+    them); the kernel's length check counts the patches; whisper needs its
+    frames; and the launcher serves each arch at the reduced size."""
+    cfg = _cfg(name, "float32")
+    jp, tp = _both(cfg, _tree(cfg))
+    p, gen = cfg.num_patches, 5
+    prompt, extras = _tokens(cfg, s=128 - p), _extras(cfg)
+    tb = {k: v for k, v in _tbatch(prompt, extras).items() if k != "tokens"}
+    r = serve.generate(tp, _port_cfg(cfg), torch.from_numpy(prompt), gen,
+                       use_kernel=True, **tb)
+    assert r.tokens.shape == (2, gen) and len(r.decode_logits) == gen - 1
+    cache = JM.init_cache(cfg, 2, 128 + gen,
+                          enc_seq=ENC_S if cfg.is_encdec else 0)
+    lg, cache = JM.prefill(jp, cfg, _jbatch(prompt, extras), cache,
+                           use_pallas=True)
+    want = [jnp.argmax(lg, -1)]
+    decode = jax.jit(lambda p, x, c: JM.decode_step(p, cfg, x, c))
+    for _ in range(gen - 1):
+        lg, cache = decode(jp, want[-1][:, None].astype(jnp.int32), cache)
+        want.append(jnp.argmax(lg, -1))
+    assert np.array_equal(r.tokens.numpy(), np.stack(want, 1))
+    if p:
+        with pytest.raises(ValueError, match="multiple of 128"):
+            serve.generate(tp, _port_cfg(cfg), torch.from_numpy(
+                _tokens(cfg, s=128)), 2, use_kernel=True, **tb)
+    if cfg.is_encdec:
+        with pytest.raises(ValueError, match="pass frames"):
+            serve.generate(tp, _port_cfg(cfg), torch.from_numpy(prompt), 2)
+    out = serve.main(["--arch", name, "--reduced", "--device", "cpu",
+                      "--prompt-len", str(128 - p), "--gen", "3",
+                      "--use-kernel"])
+    assert out.shape == (4, 3)
 
 
 def test_swiglu_matches_reference_bitwise():
