@@ -35,7 +35,9 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       and the k_ppr arithmetic on the PageRank graph, held against the
       plain version on CPU copies (its sum order is the CPU's index_add_).
       1lm runs over S = 8 coverage with seeded (P, S, L) psd and two lanes
-      done. A one-lane k_sssp sweep must equal kernel 1's sssp sweep
+      done. Both are held as one slate and as one-slot chains of
+      LANE_CHAIN passes (cut from 8 to 4 for the time limit when phase 3t
+      came). A one-lane k_sssp sweep must equal kernel 1's sssp sweep
       bitwise. Then the lane shapes of the serving path, from a generator
       of their own (LANE_SEED): for k_sssp on the SSSP graph and k_ppr on
       the PageRank graph at L = 8, a one-slot pass of the hub block and a
@@ -71,6 +73,21 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    by the host clock and WINDOWS times under torch.profiler: wall and
    device busy time per superstep (median and spread), sweep calls per
    superstep, and the device time by kernel.
+3t. The traced main path, on phase 3's engines, its launches counted apart
+   from phase 3's: the PageRank SA run again, whole, with trace=True under
+   an installed repro_torch.obs recorder, bitwise equal to phase 3's
+   untraced run (values, iterations, counters, host syncs, launches), its
+   timeline one row per superstep summing to the counters, its export
+   valid Chrome-trace JSON that ``python -m repro_torch.obs render`` reads;
+   the traced and untraced wall per superstep. The SSSP SA run capped at
+   TRACE_CAP supersteps, traced and not, bitwise, and the host loop at
+   TRACE_HOST_CAP, whose integer columns equal the fused rows. A recorded
+   S = 8 SSSP stream on weighted powerlaw_graph(2^17, seed=TRACE_SEED), two
+   200-edit batches with deletes, then a QueryService batch of LANES SSSP
+   queries on it: the spans nest as ingest > reconverge > run > chunk,
+   ingest and query_batch carry their runs' supersteps, kernels 1m and 1lm
+   launch, the answers equal Bellman-Ford's. Betweenness from BC_SOURCES on
+   powerlaw_graph(2^17, seed=TRACE_SEED + 1) through both engines, bitwise.
 4. Streaming with hierarchical partitions: a StreamingEngine (S = 8,
    StreamConfig() defaults) over PageRank on core_periphery_graph(seed=1,
    chords=1) at n = 2^19 (PR_STREAM_N, cut from phase 3's 2^21 for the
@@ -294,6 +311,7 @@ BFS_STREAM_N = 1 << 17  # phase 5c's stream
 STREAM_CAP = 8000  # superstep cap of one streaming run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 LANES = 8  # query lanes per batch (phase 2d and the serving phases)
+LANE_CHAIN = 4  # phase 2d's one-slot chains: passes (cut from 8 for 3t)
 SERVE_T2 = 1e-8  # the reference demo's (examples/graph_service.py)
 SERVE_CAP = 20000  # superstep cap of one lane batch
 SOURCES = ("block_sweep", "segment_combine", "flash_attention",
@@ -309,6 +327,10 @@ SWEEP_SEED = 90  # phase 2e's own generator: its draws shift no earlier one's
 LANE_SEED = 91  # phase 2d's lane shapes: their own generator, likewise
 WINDOW = 100  # phase 3's windows: supersteps from the start of a run
 WINDOWS = 3  # windows timed, and as many profiled
+TRACE_CAP = 300  # phase 3t: the SSSP run's superstep cap, traced and not
+TRACE_HOST_CAP = 40  # phase 3t: the host loop's cap beside it
+TRACE_SEED = 120  # phase 3t's graphs and query sources: their own seed
+BC_SOURCES = [0, 3]  # phase 3t: betweenness's sources
 DEV = "cuda"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM data sheet, dense bf16
 TF32_FLOPS_PER_S = 495e12  # the same, dense TF32
@@ -872,8 +894,8 @@ def check_lanes_against_plain(label, program, ed, c, n_live, n_total,
     ``plain_dev`` (the card for min arithmetic, exact in any order; CPU
     copies for sums, whose plain order is the CPU's index_add_), for the
     hub block plus 64 seeded random blocks, as one slate at depth 1 and as
-    one-slot chains at depth 8. Returns the largest absolute difference of
-    the new values."""
+    one-slot chains of LANE_CHAIN passes. Returns the largest absolute
+    difference of the new values."""
     import numpy as np
     import torch
     from repro_torch.kernels import block_sweep as kb
@@ -931,20 +953,21 @@ def check_lanes_against_plain(label, program, ed, c, n_live, n_total,
     torch.cuda.synchronize()
     compare("depth 1", *out)
     out = []
-    for dev, plain in runs:  # depth 8: one-slot chains
+    for dev, plain in runs:  # one-slot chains
         v, vc, p, d, ld, sc = fresh(dev)
         k = torch.ones(1, dtype=torch.bool, device=dev)
         for b in blocks:
             r = torch.tensor([b], dtype=torch.int32, device=dev)
-            for i in range(8):
+            for i in range(LANE_CHAIN):
                 lane_sweep(program, n_total, eds[dev], v, vc, r, k, p, d, ld,
-                           sc, plain=plain, first=i == 0, last=i == 7,
-                           **args)
+                           sc, plain=plain, first=i == 0,
+                           last=i == LANE_CHAIN - 1, **args)
         out.append((v, p, d))
     torch.cuda.synchronize()
-    compare("depth 8", *out)
+    compare(f"depth {LANE_CHAIN}", *out)
     log(f"[kernel] {label}: kernel vs plain ({plain_dev}) on hub block {hub} "
-        f"({int(tile_cnt[hub])} tiles) + 64 blocks, L={L}, depth 1 and 8: "
+        f"({int(tile_cnt[hub])} tiles) + 64 blocks, L={L}, depth 1 and "
+        f"{LANE_CHAIN}: "
         f"bitwise share {same}/{total}, max_abs_err {worst!r} (in "
         f"{time.perf_counter() - t0:.1f} s)")
     return worst
@@ -1748,6 +1771,217 @@ def stream_phase(label, g, program, cfg, batches, exact):
     log(f"[check] {label}: warm values agree with the baseline after every "
         f"batch ({'bitwise' if exact else 'rtol=1e-4, atol=2e-3/n'})")
     return masked, se
+
+
+def nested_spans(rec, outer, chain):
+    """Every ``outer`` span of the recorder holds the ``chain`` of span
+    names, each inside the one before it by time and one level deeper."""
+    spans = [e for e in rec.events if e["type"] == "span"]
+
+    def inside(e, name):
+        return [c for c in spans if c["name"] == name
+                and c["depth"] == e["depth"] + 1 and c["ts"] >= e["ts"]
+                and c["ts"] + c["dur"] <= e["ts"] + e["dur"]]
+
+    tops = [e for e in spans if e["name"] == outer]
+    for e in tops:
+        level = [e]
+        for name in chain:
+            level = [c for p in level for c in inside(p, name)]
+            if not level:
+                return False
+    return bool(tops)
+
+
+def run_key(res):
+    """What a traced run must reproduce of its untraced twin: iterations,
+    every counter, convergence and host syncs (the wall clock aside)."""
+    import dataclasses
+    m = dataclasses.asdict(res.metrics)
+    del m["wall_time_s"]
+    return m, res.host_syncs
+
+
+def trace_phase(engines, results, sa_launches, t_start):
+    """Phase 3t: the traced main path, after phase 3's checks, on phase 3's
+    engines. Its launches are counted apart from phase 3's."""
+    import json as json_mod
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import graph as G
+    from repro_torch.core.engine import (TIMELINE_INT_COLS, EngineConfig,
+                                         betweenness)
+    from repro_torch.core.metrics import COUNTER_FIELDS
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serve import Query, QueryService
+    from repro_torch.stream import StreamingEngine, synthetic_stream
+    # -- the PageRank run at n = 2^21, whole, traced -------------------------
+    sa = engines["pagerank"][0]
+    plain = results[("pagerank", "structure-aware")]
+    zero_counts()
+    torch.cuda.synchronize()
+    with obs_trace.recording() as rec:
+        res = sa.run(max_iterations=SA_CAP, trace=True)
+    torch.cuda.synchronize()
+    n1 = launch_counts()[0]
+    m, tl = res.metrics, res.timeline
+    if not np.array_equal(res.values, plain.values) \
+            or run_key(res) != run_key(plain):
+        fail("3t: the traced PageRank run differs from phase 3's untraced "
+             "run")
+    if n1 != sa_launches["pagerank"]:
+        fail(f"3t: the traced PageRank run launched kernel 1 {n1} times, "
+             f"phase 3's untraced run {sa_launches['pagerank']}")
+    if len(tl) != m.iterations \
+            or [r["superstep"] for r in tl] != list(range(m.iterations)):
+        fail("3t: the PageRank timeline is not one row per superstep")
+    for f in COUNTER_FIELDS:
+        if sum(r[f] for r in tl) != getattr(m, f):
+            fail(f"3t: the timeline's {f} does not sum to the run's")
+    if rec.dropped:
+        fail(f"3t: the recorder dropped {rec.dropped} events")
+    per = m.wall_time_s * 1e3 / m.iterations
+    per0 = plain.metrics.wall_time_s * 1e3 / m.iterations
+    run_span = next(e for e in rec.events if e["name"] == "run")
+    log(f"[trace] 3t pagerank SA traced: iterations={m.iterations} "
+        f"converged={m.converged} host_syncs={res.host_syncs} "
+        f"sweep_launches={n1}, bitwise equal to phase 3's untraced run; "
+        f"timeline {len(tl)} rows summing to the counters; wall_s "
+        f"{m.wall_time_s!r} against {plain.metrics.wall_time_s!r}: "
+        f"{per!r} ms per superstep traced, {per0!r} untraced "
+        f"({per / per0!r}x); run span {run_span['dur']!r} s; "
+        f"{len(rec.events)} events")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = obs_export.write(rec, os.path.join(tmp, "trace_pagerank.json"),
+                                meta={"phase": "3t"})
+        with open(path) as f:
+            errors = obs_export.validate(json_mod.load(f))
+        if errors:
+            fail(f"3t: the export is not valid Chrome-trace JSON: "
+                 f"{errors[:3]}")
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs", "render", path,
+             "--limit", "12"], capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        if out.returncode:
+            fail(f"3t: python -m repro_torch.obs render exited "
+                 f"{out.returncode}: {out.stderr[-500:]}")
+        log(f"[trace] 3t export {os.path.getsize(path)} B valid; render:\n"
+            + "\n".join(out.stdout.splitlines()[-14:]))
+    del rec, res, tl
+
+    # -- the SSSP run, capped: fused traced and untraced, then the host loop
+    sa = engines["sssp"][0]
+    zero_counts()
+    torch.cuda.synchronize()
+    traced = sa.run(max_iterations=TRACE_CAP, trace=True)
+    torch.cuda.synchronize()
+    untraced = sa.run(max_iterations=TRACE_CAP)
+    torch.cuda.synchronize()
+    host = sa.run(max_iterations=TRACE_HOST_CAP, fused=False, trace=True)
+    torch.cuda.synchronize()
+    if not np.array_equal(traced.values, untraced.values) \
+            or run_key(traced) != run_key(untraced) \
+            or traced.metrics.iterations != TRACE_CAP:
+        fail("3t: the traced SSSP run differs from its untraced twin")
+    cols = TIMELINE_INT_COLS + ("width", "superstep")
+    if [[r[c] for c in cols] for r in host.timeline] != \
+            [[r[c] for c in cols] for r in traced.timeline[:TRACE_HOST_CAP]]:
+        fail("3t: the host loop's timeline differs from the fused loop's")
+    for f in COUNTER_FIELDS:
+        if sum(r[f] for r in traced.timeline) != getattr(traced.metrics, f):
+            fail(f"3t: the SSSP timeline's {f} does not sum to the run's")
+    t_ms = traced.metrics.wall_time_s * 1e3 / TRACE_CAP
+    u_ms = untraced.metrics.wall_time_s * 1e3 / TRACE_CAP
+    log(f"[trace] 3t sssp SA capped at {TRACE_CAP} supersteps: traced "
+        f"bitwise equal to untraced (host_syncs {traced.host_syncs}); "
+        f"{t_ms!r} ms per superstep traced, {u_ms!r} untraced "
+        f"({t_ms / u_ms!r}x); host loop at {TRACE_HOST_CAP}: integer "
+        f"columns equal to the fused rows, {host.metrics.wall_time_s!r} s; "
+        f"sweep launches {launch_counts()[0]}")
+    del traced, untraced, host
+
+    # -- a recorded S = 8 SSSP stream and a query batch on it ----------------
+    t0 = time.perf_counter()
+    g = G.powerlaw_graph(BFS_STREAM_N, avg_deg=AVG_DEG, seed=TRACE_SEED,
+                         weighted=True)
+    batches = synthetic_stream(g, 2, 200, seed=TRACE_SEED, delete_frac=0.2,
+                               weighted=True)
+    zero_counts()
+    torch.cuda.synchronize()
+    with obs_trace.recording() as rec:
+        se = StreamingEngine(g, A.sssp(0), EngineConfig(
+            block_size=BLOCK, width=WIDTH, t2=T2, subblocks=SUB,
+            max_iterations=SA_CAP), device=DEV)
+        reps = [se.ingest(b) for b in batches]
+        svc = QueryService(se, max_lanes=LANES)
+        srcs = [int(v) for v in np.random.default_rng(TRACE_SEED).choice(
+            g.n, LANES, replace=False)]
+        for v in srcs:
+            svc.submit(Query(kind="sssp", source=v))
+        answers = svc.run_pending()
+        torch.cuda.synchronize()
+    n1m = launch_counts()[1]
+    n1lm = lane_counts()[1]
+    spans = [e for e in rec.events if e["type"] == "span"]
+    ing = [e for e in spans if e["name"] == "ingest"]
+    qb = [e for e in spans if e["name"] == "query_batch"]
+    if not all(r.converged for r in reps) or len(ing) != len(reps) \
+            or [e["args"]["iterations"] for e in ing] != \
+            [r.iterations for r in reps]:
+        fail("3t: the ingest spans do not carry their reports' iterations")
+    if len(qb) != 1 or qb[0]["args"]["iterations"] != \
+            svc.last_batch.metrics.iterations \
+            or qb[0]["args"]["lanes"] != LANES:
+        fail("3t: the query_batch span does not carry the batch's "
+             "iterations")
+    if not nested_spans(rec, "ingest", ("reconverge", "run", "chunk")):
+        fail("3t: the spans do not nest as ingest > reconverge > run > "
+             "chunk")
+    if n1m == 0 or n1lm == 0 or rec.dropped:
+        fail(f"3t: the recorded stream launched 1m {n1m} and 1lm {n1lm} "
+             f"times, {rec.dropped} events dropped")
+    check_answers("3t", answers, srcs, se.current_graph(), "sssp", se.epoch)
+    names = sorted({e["name"] for e in spans})
+    batch_cols = [(r.inserts, r.deletes, r.iterations) for r in reps]
+    log(f"[trace] 3t recorded S={SUB} sssp stream on powerlaw_graph("
+        f"n={g.n}): batches {batch_cols} (+, -, supersteps), spans "
+        f"{names} nest as ingest > reconverge > "
+        f"run > chunk; query batch of {LANES} lanes, "
+        f"{svc.last_batch.metrics.iterations} supersteps, span "
+        f"{qb[0]['dur']!r} s; launches 1m={n1m} 1lm={n1lm}; "
+        f"{len(rec.events)} events, in {time.perf_counter() - t0:.1f} s")
+    del rec, se, svc, answers
+
+    # -- betweenness through both engines on the card ------------------------
+    t0 = time.perf_counter()
+    g = G.powerlaw_graph(BFS_STREAM_N, avg_deg=AVG_DEG, seed=TRACE_SEED + 1)
+    cfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=T2,
+                       max_iterations=SA_CAP)
+    zero_counts()
+    bc_sa, m_sa = betweenness(g, BC_SOURCES, cfg, structure_aware=True,
+                              device=DEV)
+    n1 = launch_counts()[0]
+    bc_b, m_b = betweenness(g, BC_SOURCES, cfg, structure_aware=False,
+                            device=DEV)
+    if not (np.array_equal(bc_sa, bc_b) and np.all(np.isfinite(bc_sa))
+            and bc_sa.shape == (g.n,) and np.all(bc_sa >= 0)
+            and bc_sa.any()):
+        fail("3t: betweenness through the two engines is not bitwise "
+             "equal, finite and non-negative")
+    if n1 == 0:
+        fail("3t: betweenness's BFS waves never launched kernel 1")
+    log(f"[trace] 3t betweenness on powerlaw_graph(n={g.n}), sources "
+        f"{BC_SOURCES}: both engines bitwise equal, max bc "
+        f"{float(bc_sa.max())!r}; SA {m_sa.iterations} supersteps "
+        f"{m_sa.updates} updates, baseline {m_b.iterations} iterations "
+        f"{m_b.updates} updates; kernel 1 launches (SA) {n1}; in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[time] phase 3t ends at {time.perf_counter() - t_start:.1f} s")
 
 
 @contextlib.contextmanager
@@ -3037,6 +3271,7 @@ def main() -> int:
     log(f"[time] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     launches = 0
     results = {}
+    sa_launches = {}
     for name, (sa, base) in engines.items():
         for label, eng, cap in (("structure-aware", sa, SA_CAP),
                                 ("baseline", base, BASE_CAP)):
@@ -3058,6 +3293,8 @@ def main() -> int:
                 f"wall_s={m.wall_time_s!r} host_syncs={res.host_syncs} "
                 f"sweep_launches={n_launch}")
             results[(name, label)] = res
+            if label == "structure-aware":
+                sa_launches[name] = n_launch
     sa_r = results[("sssp", "structure-aware")]
     base_r = results[("sssp", "baseline")]
     if not (sa_r.metrics.converged and base_r.metrics.converged):
@@ -3074,6 +3311,9 @@ def main() -> int:
         f"{base_r.metrics.updates / max(sa_r.metrics.updates, 1):.2f}x "
         f"fewer updates, sssp "
         f"{results[('sssp', 'baseline')].metrics.updates / max(results[('sssp', 'structure-aware')].metrics.updates, 1):.2f}x")
+    # -- phase 3t: the traced main path, its launches apart from phase 3's --
+    log(f"[time] phase 3t starts at {time.perf_counter() - t_start:.1f} s")
+    trace_phase(engines, results, sa_launches, t_start)
     # the loop names still hold the last engines and results: free them
     del engines, results, sa, base, eng, res, sa_r, base_r
 

@@ -12,7 +12,8 @@ Entry points: :class:`repro_torch.core.engine.StructureAwareEngine`,
 :class:`repro_torch.serve.QueryService`,
 :class:`repro_torch.core.distributed.DistributedEngine`, the dense LM
 decoders of :mod:`repro_torch.models.model`, and ``python -m`` of
-``repro_torch.quickstart``, ``repro_torch.streaming_graph``,
-``repro_torch.graph_service``, ``repro_torch.distributed_graph`` and
-``repro_torch.launch.serve``.
+``repro_torch.quickstart``, ``repro_torch.graph_suite``,
+``repro_torch.streaming_graph``, ``repro_torch.graph_service``,
+``repro_torch.distributed_graph``, ``repro_torch.launch.serve`` and
+``repro_torch.obs`` (render or validate an exported trace).
 """

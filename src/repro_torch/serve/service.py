@@ -25,6 +25,10 @@ One LaneEngine is kept per (epoch engine, family): epochs that only mutate
 edge data in place reuse it; a plan rebuild makes a new one, and the old
 engine's lane engines (and their device scratch) are dropped once no
 pending query pins that engine.
+
+With a :mod:`repro_torch.obs` recorder installed, each lane batch runs in a
+``query_batch`` span (lanes, family, epoch, then its supersteps), which
+ends at the batch's last device read.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from repro_torch.core.algorithms import LANE_FAMILIES, LaneProgram
 from repro_torch.core.engine import coupling_from_counts
 from repro_torch.core.metrics import ServeMetrics, Timer
 from repro_torch.core.schedule import admission_order
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.lanes import LaneEngine
 from repro_torch.stream.delta import DeltaBatch
 from repro_torch.stream.engine import EpochState, StreamingEngine
@@ -212,10 +217,13 @@ class QueryService:
             np.asarray(aux, np.float32)).to(es.ed.src.device))
         coupling = coupling_from_counts(
             es.coupling_counts, family, es.engine.plan.block_size)
-        with Timer() as t:
+        with obs_trace.span("query_batch", cat="serve", lanes=k,
+                            family=query0.family_key()[0],
+                            epoch=es.epoch) as sp, Timer() as t:
             res = lane_eng.run(ed=ed, coupling=coupling, values0=values0,
                                vconst=vconst, lane_active=lane_active,
                                edge_counts=es.edge_counts)
+            sp.set(iterations=res.metrics.iterations)
         done_at = time.perf_counter()
         out: list[QueryResult] = []
         for lane, p in enumerate(pend):

@@ -52,6 +52,11 @@ a pin copies the epoch's host bookkeeping at once and its device edge state
 only when an ingest is about to mutate it, in the ingest preamble, before
 any commit; pins of one epoch share that copy. ``save_epoch``/``restore``
 belong to the out-of-core slice and raise ``NotImplementedError`` here.
+
+With a :mod:`repro_torch.obs` recorder installed, ``snapshot`` emits a
+``snapshot`` span and ``ingest`` an ``ingest`` span around a ``reconverge``
+span, which holds the engine's ``run`` spans (the reference's names, cats
+and args).
 """
 from __future__ import annotations
 
@@ -68,6 +73,7 @@ from repro_torch.core.engine import (EdgeData, EngineConfig, RunResult,
 from repro_torch.core.graph import Graph, edges_of, from_edges, symmetrize
 from repro_torch.core.metrics import StreamMetrics, Timer
 from repro_torch.core.schedule import adaptive_i2
+from repro_torch.obs import trace as obs_trace
 from repro_torch.stream.apply import EdgeStore, MutableTiledState
 from repro_torch.stream.delta import DeltaBatch
 
@@ -209,12 +215,13 @@ class StreamingEngine:
         :meth:`ingest` calls (the ingest preamble preserves the device state
         of every live pin before mutating it); it is tracked by weakref, so
         dropping the last reference makes future ingests free again."""
-        es = EpochState(
-            epoch=self.epoch, engine=self.engine,
-            coupling_counts=self.W.copy(), out_deg=self.out_deg.copy(),
-            in_deg=self.in_deg.copy(),
-            edge_counts=np.array(self.engine.edge_counts))
-        self._snapshots.append(weakref.ref(es))
+        with obs_trace.span("snapshot", cat="stream", epoch=self.epoch):
+            es = EpochState(
+                epoch=self.epoch, engine=self.engine,
+                coupling_counts=self.W.copy(), out_deg=self.out_deg.copy(),
+                in_deg=self.in_deg.copy(),
+                edge_counts=np.array(self.engine.edge_counts))
+            self._snapshots.append(weakref.ref(es))
         return es
 
     def _preserve_pinned(self) -> int:
@@ -303,6 +310,17 @@ class StreamingEngine:
 
     # -- ingest --------------------------------------------------------------
     def ingest(self, batch: DeltaBatch) -> StreamBatchReport:
+        with obs_trace.span("ingest", cat="stream",
+                            inserts=batch.n_inserts,
+                            deletes=batch.n_deletes,
+                            epoch=self.epoch) as sp:
+            report = self._ingest_impl(batch)
+            sp.set(dirty_blocks=report.dirty_blocks,
+                   plan_rebuild=report.plan_rebuild,
+                   iterations=report.iterations)
+        return report
+
+    def _ingest_impl(self, batch: DeltaBatch) -> StreamBatchReport:
         prog, eng = self.program, self.engine
         plan = eng.plan
         c = plan.block_size
@@ -585,7 +603,8 @@ class StreamingEngine:
             self.store.maybe_compact()
 
         res = None
-        with Timer() as t_run:
+        with obs_trace.span("reconverge", cat="stream",
+                            warm=self.stream.warm), Timer() as t_run:
             if self.stream.warm:
                 if psd0.any():
                     vals_perm = self._values[self.engine.plan.order].astype(

@@ -114,16 +114,13 @@ def test_non_adaptive_engine_matches_reference():
 
 def test_later_slices_raise():
     """What belongs to later slices raises; sub-blocks, warm starts and
-    epoch snapshots run."""
+    epoch snapshots run (tracing too: tests/test_torch_obs.py)."""
     from repro_torch.stream import StreamingEngine
     tg = TG.powerlaw_graph(300, 3, seed=0)
     with pytest.raises(NotImplementedError, match="out-of-core"):
         TEngine(tg, TA.sssp(), TConfig(block_size=64, resident_blocks=3),
                 device="cpu")
-    eng = TEngine(tg, TA.sssp(), TConfig(block_size=64, subblocks=4),
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="tracing"):
-        eng.run(trace=True)
+    TEngine(tg, TA.sssp(), TConfig(block_size=64, subblocks=4), device="cpu")
     se = StreamingEngine(tg, TA.sssp(), TConfig(block_size=64),
                          device="cpu")
     assert se.snapshot().epoch == 0
