@@ -5,6 +5,7 @@
     python3 chip_smoke.py --segment-repeats N  # phase 6a's times, N times
     python3 chip_smoke.py --sweep-profile  # kernels 1/1m/1l/1lm's shapes alone
     python3 chip_smoke.py --ssd-profile  # kernel 5 at the two models' shapes
+    python3 chip_smoke.py --ooc-phase  # phase 3o alone
 
 Phases (any failed check exits non-zero; nothing is caught and passed over):
 
@@ -88,6 +89,48 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    ingest and query_batch carry their runs' supersteps, kernels 1m and 1lm
    launch, the answers equal Bellman-Ford's. Betweenness from BC_SOURCES on
    powerlaw_graph(2^17, seed=TRACE_SEED + 1) through both engines, bitwise.
+3o. The out-of-core tier and epoch persistence (``--ooc-phase``: this
+   phase alone, after phase 3's PageRank graph, engine and run), its
+   launches counted apart from phase 3's, its draws from its own seed
+   (OOC_SEED).
+   a. Phase 3's PageRank engine rebuilt with ``from_plan`` on phase 3's
+      plan, values, aux and coupling under resident_blocks = P / 4 = 1024
+      of 4096 blocks (payloads in a host cache), and run through run()
+      capped at OOC_CAP = 400 of its 3368 supersteps (whole, it took
+      79.1 s, 3.9x the resident run, and the phase would pass ~90 s; at
+      1000 the script took 1017 s on a slow host, at 600 1069 s; None runs
+      it whole against phase 3's run): values and every
+      counter but the spill tier's bitwise a resident run at the same cap,
+      the budget held and evictions made.
+      Paged chunks are one superstep each, so host syncs and kernel 1
+      launches differ (a resident chunk also enqueues its supersteps past
+      convergence, as no-ops); it prints the wall and its slowdown against
+      phase 3's, the host syncs, evictions, MB spilled and fetched and the
+      prefetch hit rate beside the card's name and power limit. Then the
+      host loop under the budget at TRACE_HOST_CAP supersteps, bitwise the
+      resident host loop; then a budget run at OOC_TRACE_CAP supersteps
+      traced under a recorder: its rows those of the resident traced run
+      and summing to its counters, its ``spill_evict`` and ``prefetch``
+      spans (cat ooc) present, the prefetch bytes summing to
+      bytes_fetched. Then the disk tier: a second engine under the same
+      budget with npz segments in a temporary directory (no host cache, no
+      row source: every fetch reads its blocks back from disk), capped at
+      OOC_DISK_CAP supersteps (the tier pages ~5 ms a block), bitwise a
+      resident run at that cap; its writer closed before the directory
+      goes.
+   b. An S = 8 SSSP StreamingEngine on weighted powerlaw_graph(2^17,
+      seed=OOC_SEED) (P = 256) under the floor budget width + 2 = 130
+      with npz segments in a temporary directory (no host cache; the
+      stream's host tile mirror is the store's row source, so its segments
+      are written and never read; the batches' latencies include those
+      writes), beside a resident twin: the bootstrap and two 200-edit
+      batches with 20% deletes bitwise the twin's (values and report
+      columns), kernel 1m launched. Then 8 SSSP queries (QueryService(max_lanes=8)) pinned
+      while blocks are spilled, a third batch ingested, the answers
+      bitwise Bellman-Ford's on the pinned graph through kernel 1lm. Then
+      save_epoch, restore(verify=False) bitwise, and restore(verify=True)
+      under the budget: bitwise the live values in fewer than half the
+      cold bootstrap's supersteps (both counts printed).
 4. Streaming with hierarchical partitions: a StreamingEngine (S = 8,
    StreamConfig() defaults) over PageRank on core_periphery_graph(seed=1,
    chords=1) at n = 2^19 (PR_STREAM_N, cut from phase 3's 2^21 for the
@@ -331,6 +374,13 @@ TRACE_CAP = 300  # phase 3t: the SSSP run's superstep cap, traced and not
 TRACE_HOST_CAP = 40  # phase 3t: the host loop's cap beside it
 TRACE_SEED = 120  # phase 3t's graphs and query sources: their own seed
 BC_SOURCES = [0, 3]  # phase 3t: betweenness's sources
+OOC_SEED = 130  # phase 3o's graph, batches and query sources: its own seed
+OOC_CAP = 400  # phase 3o: the budget run's superstep cap (None: whole run;
+# whole, it took 79.1 s, 3.94x the resident run; at 1000, 24.6 s; at 600,
+# 16.9 s)
+OOC_TRACE_CAP = 100  # phase 3o: the traced budget run's cap
+OOC_DISK_CAP = 20  # phase 3o: the disk-tier run's cap (on the H100's host
+# it pages ~5 ms a block)
 DEV = "cuda"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM data sheet, dense bf16
 TF32_FLOPS_PER_S = 495e12  # the same, dense TF32
@@ -1984,6 +2034,316 @@ def trace_phase(engines, results, sa_launches, t_start):
     log(f"[time] phase 3t ends at {time.perf_counter() - t_start:.1f} s")
 
 
+def spill_line(m) -> str:
+    """A run's (or a batch report's) spill counters, as printed."""
+    asked = m.prefetch_hits + m.prefetch_misses
+    return (f"evictions={m.spill_evictions} spilled_MB="
+            f"{m.bytes_spilled / 1e6!r} fetched_MB={m.bytes_fetched / 1e6!r} "
+            f"hits={m.prefetch_hits} misses={m.prefetch_misses} "
+            f"hit_rate={m.prefetch_hits / asked if asked else 1.0!r}")
+
+
+def algo_key(res):
+    """What a run under a budget must reproduce of the resident run: the
+    values aside, every counter but the spill tier's and the wall clock
+    (paged chunks are one superstep each, so host syncs differ too)."""
+    import dataclasses
+    m = dataclasses.asdict(res.metrics)
+    for k in ("wall_time_s", "spill_evictions", "bytes_spilled",
+              "prefetch_hits", "prefetch_misses", "bytes_fetched"):
+        del m[k]
+    return m
+
+
+def ooc_phase(engines, results, sa_launches, t_start):
+    """Phase 3o: the out-of-core tier and epoch persistence, after phase 3t,
+    on phase 3's PageRank engine and plan; its launches are counted apart
+    from phase 3's. Returns the launches of kernels 1, 1m and 1lm."""
+    import dataclasses
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import graph as G
+    from repro_torch.core.engine import (TIMELINE_INT_COLS, EngineConfig,
+                                         StructureAwareEngine)
+    from repro_torch.core.metrics import COUNTER_FIELDS
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serve import Query, QueryService
+    from repro_torch.stream import StreamingEngine, synthetic_stream
+    t_phase = time.perf_counter()
+    card = card_line()
+    counts = {"1": 0, "1m": 0, "1lm": 0}
+    # -- a. the main path under a budget of P / 4 resident blocks ----------
+    sa = engines["pagerank"][0]
+    P = sa.plan.num_blocks
+    budget = P // 4
+    t0 = time.perf_counter()
+    eng = StructureAwareEngine.from_plan(
+        sa.plan, sa.program, dataclasses.replace(sa.config,
+                                                 resident_blocks=budget),
+        sa.values0, sa.aux, sa._coupling, sa.barrier_block, device=DEV)
+    log(f"[ooc] 3o pagerank engine under a budget of {budget} of {P} blocks "
+        f"built from phase 3's plan in {time.perf_counter() - t0:.1f} s")
+    if OOC_CAP is None:
+        plain, cap, n_plain = (results[("pagerank", "structure-aware")],
+                               SA_CAP, sa_launches["pagerank"])
+    else:
+        cap = OOC_CAP
+        zero_counts()
+        torch.cuda.synchronize()
+        plain = sa.run(max_iterations=cap)
+        torch.cuda.synchronize()
+        n_plain = launch_counts()[0]
+    zero_counts()
+    torch.cuda.synchronize()
+    res = eng.run(max_iterations=cap)
+    torch.cuda.synchronize()
+    n1 = launch_counts()[0]
+    counts["1"] += n1
+    m = res.metrics
+    if not np.array_equal(res.values, plain.values) \
+            or algo_key(res) != algo_key(plain) or n1 == 0:
+        fail("3o: the pagerank run under a budget differs from the "
+             f"resident run (kernel 1 launches {n1})")
+    if m.spill_evictions == 0 or int(eng.spill.resident.sum()) > budget:
+        fail("3o: the budget did not bind or was exceeded")
+    slow = m.wall_time_s / plain.metrics.wall_time_s
+    log(f"[ooc] 3o pagerank SA under a budget of {budget}/{P} blocks"
+        f"{'' if OOC_CAP is None else f', capped at {cap} supersteps'}: "
+        f"iterations={m.iterations} converged={m.converged}, values and "
+        f"counters bitwise equal to the resident run's; kernel 1 launches "
+        f"{n1} against {n_plain} (a resident chunk also enqueues its "
+        f"supersteps past convergence, as no-ops); wall_s="
+        f"{m.wall_time_s!r} against "
+        f"{plain.metrics.wall_time_s!r} ({slow!r}x); host_syncs="
+        f"{res.host_syncs} against {plain.host_syncs}; {spill_line(m)}; "
+        f"{card}")
+    del res, plain
+    # the host loop under the same budget, against the resident host loop
+    host_plain = sa.run(max_iterations=TRACE_HOST_CAP, fused=False)
+    torch.cuda.synchronize()
+    zero_counts()
+    host = eng.run(max_iterations=TRACE_HOST_CAP, fused=False)
+    torch.cuda.synchronize()
+    counts["1"] += launch_counts()[0]
+    if not np.array_equal(host.values, host_plain.values) \
+            or algo_key(host) != algo_key(host_plain):
+        fail("3o: the host loop under a budget differs from the resident "
+             "host loop")
+    log(f"[ooc] 3o host loop at {TRACE_HOST_CAP} supersteps under the "
+        f"budget bitwise equal to the resident host loop; wall_s="
+        f"{host.metrics.wall_time_s!r} against "
+        f"{host_plain.metrics.wall_time_s!r}; {spill_line(host.metrics)}")
+    del host, host_plain
+    # one capped budget run, traced under a recorder
+    traced_plain = sa.run(max_iterations=OOC_TRACE_CAP, trace=True)
+    zero_counts()
+    torch.cuda.synchronize()
+    with obs_trace.recording() as rec:
+        traced = eng.run(max_iterations=OOC_TRACE_CAP, trace=True)
+    torch.cuda.synchronize()
+    counts["1"] += launch_counts()[0]
+    cols = TIMELINE_INT_COLS + ("width", "superstep")
+    if [[r[c] for c in cols] for r in traced.timeline] != \
+            [[r[c] for c in cols] for r in traced_plain.timeline]:
+        fail("3o: the traced budget run's timeline differs from the "
+             "resident traced run's")
+    for f in COUNTER_FIELDS:
+        if sum(r[f] for r in traced.timeline) != getattr(traced.metrics, f):
+            fail(f"3o: the traced budget run's {f} does not sum to the "
+                 "run's")
+    ooc = [e for e in rec.events if e["type"] == "span"
+           and e["cat"] == "ooc"]
+    names = {e["name"] for e in ooc}
+    if names != {"spill_evict", "prefetch"} or rec.dropped:
+        fail(f"3o: the traced budget run's ooc spans are {sorted(names)}, "
+             f"{rec.dropped} events dropped")
+    fetched = sum(e["args"]["bytes"] for e in ooc if e["name"] == "prefetch")
+    if fetched != traced.metrics.bytes_fetched:
+        fail("3o: the prefetch spans' bytes do not sum to bytes_fetched")
+    log(f"[ooc] 3o traced budget run at {OOC_TRACE_CAP} supersteps: "
+        f"{len(traced.timeline)} rows equal to the resident traced run's "
+        f"and summing to its counters; "
+        f"{sum(e['name'] == 'spill_evict' for e in ooc)} spill_evict and "
+        f"{sum(e['name'] == 'prefetch' for e in ooc)} prefetch spans, "
+        f"{sum(e['dur'] for e in ooc)!r} s in them of "
+        f"{traced.metrics.wall_time_s!r} s")
+    del traced, traced_plain, rec, eng
+    gc.collect()
+    # the same budget on the disk tier: npz segments, no host cache and no
+    # row source, so every fetch reads its blocks back from disk
+    with tempfile.TemporaryDirectory() as seg_dir:
+        disk = StructureAwareEngine.from_plan(
+            sa.plan, sa.program, dataclasses.replace(
+                sa.config, resident_blocks=budget, spill_dir=seg_dir),
+            sa.values0, sa.aux, sa._coupling, sa.barrier_block, device=DEV)
+        if disk.spill is None or disk.spill.keep_host \
+                or disk.spill.row_source is not None:
+            fail("3o: the disk-tier engine's payloads are not on disk")
+        plain = sa.run(max_iterations=OOC_DISK_CAP)
+        torch.cuda.synchronize()
+        zero_counts()
+        res = disk.run(max_iterations=OOC_DISK_CAP)
+        torch.cuda.synchronize()
+        n1 = launch_counts()[0]
+        counts["1"] += n1
+        # every segment written and the writer stopped before the
+        # directory goes
+        disk.spill.close()
+        segments = sum(f.endswith(".npz") for f in os.listdir(seg_dir))
+    m = res.metrics
+    if not np.array_equal(res.values, plain.values) \
+            or algo_key(res) != algo_key(plain) or n1 == 0 \
+            or m.bytes_fetched == 0 or segments == 0:
+        fail("3o: the disk-tier run differs from the resident run, or "
+             f"fetched nothing from disk (kernel 1 launches {n1}, "
+             f"{segments} segments)")
+    log(f"[ooc] 3o disk tier (npz segments, no host cache) at "
+        f"{OOC_DISK_CAP} supersteps under the budget bitwise equal to the "
+        f"resident run; wall_s={m.wall_time_s!r} against "
+        f"{plain.metrics.wall_time_s!r} "
+        f"({m.wall_time_s / plain.metrics.wall_time_s!r}x); {segments} "
+        f"segments on disk; {spill_line(m)}; {card}")
+    del res, plain, disk
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- b. streaming, persistence and pins under a budget -----------------
+    t0 = time.perf_counter()
+    g = G.powerlaw_graph(BFS_STREAM_N, avg_deg=AVG_DEG, seed=OOC_SEED,
+                         weighted=True)
+    cfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=T2, subblocks=SUB,
+                       max_iterations=SA_CAP)
+    orng = np.random.default_rng(OOC_SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        bcfg = dataclasses.replace(cfg, resident_blocks=WIDTH + 2,
+                                   spill_dir=str(Path(tmp) / "spill"))
+        zero_counts()
+        torch.cuda.synchronize()
+        se = StreamingEngine(g, A.sssp(0), bcfg, device=DEV)
+        twin = StreamingEngine(g, A.sssp(0), cfg, device=DEV)
+        torch.cuda.synchronize()
+        counts["1m"] += launch_counts()[1]
+        spill = se.engine.spill
+        init = se.initial_result.metrics
+        if spill is None or spill.keep_host or not init.converged \
+                or not np.array_equal(se.values, twin.values):
+            fail("3o: the budget stream's bootstrap is not its resident "
+                 "twin's, or its tier is not on disk")
+        log(f"[ooc] 3o sssp stream S={SUB} on powerlaw_graph(n={g.n}), "
+            f"P={se.engine.plan.num_blocks}, budget {spill.budget} with npz "
+            f"segments: bootstrap {init.iterations} supersteps bitwise equal "
+            f"to the resident twin's; {spill_line(init)}; built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        batches = synthetic_stream(g, 3, 200, seed=OOC_SEED, delete_frac=0.2,
+                                   weighted=True)
+        fields = ("iterations", "edges_processed", "dirty_blocks",
+                  "dirty_subblocks", "vertices_reset", "converged",
+                  "blocks_retired", "bytes_uploaded")
+        for i, b in enumerate(batches[:2]):
+            zero_counts()
+            torch.cuda.synchronize()
+            r = se.ingest(b)
+            torch.cuda.synchronize()
+            n1m = launch_counts()[1]
+            counts["1m"] += n1m
+            rt = twin.ingest(b)
+            if not np.array_equal(se.values, twin.values) or [
+                    getattr(r, f) for f in fields] != [
+                    getattr(rt, f) for f in fields] or n1m == 0:
+                fail(f"3o: budget stream batch {i} differs from its resident "
+                     f"twin (kernel 1m launches {n1m})")
+            log(f"[ooc] 3o batch {i}: +{r.inserts} -{r.deletes} "
+                f"iterations={r.iterations} latency_s={r.latency_s!r} "
+                f"(resident twin {rt.latency_s!r}), bitwise equal to the "
+                f"twin; 1m launches {n1m}; {spill_line(r)}")
+        # queries pinned while blocks are spilled, answered after an ingest
+        svc = QueryService(se, max_lanes=LANES)
+        g0, e0 = se.current_graph(), se.epoch
+        srcs = [int(v) for v in orng.choice(g.n, LANES, replace=False)]
+        if spill.spilled_blocks.size == 0:
+            fail("3o: no block is spilled when the queries pin the epoch")
+        for v in srcs:
+            svc.submit(Query(kind="sssp", source=v))
+        svc.ingest(batches[2])
+        zero_counts()
+        answers, lane_launches = serve_pending("3o", svc, se)
+        counts["1lm"] += int(lane_launches[1])
+        if lane_launches[1] == 0:
+            fail("3o: kernel 1lm never launched on the pinned epoch")
+        check_answers("3o", answers, srcs, g0, "sssp", e0)
+        del svc, answers
+        # save, then restore without and with the verification pass
+        ck = str(Path(tmp) / "epoch")
+        t0 = time.perf_counter()
+        se.save_epoch(ck).wait()
+        save_s = time.perf_counter() - t0
+        raw = StreamingEngine.restore(
+            ck, A.sssp(0), dataclasses.replace(
+                bcfg, spill_dir=str(Path(tmp) / "spill2")), verify=False,
+            device=DEV)
+        if not np.array_equal(raw.values, se.values) \
+                or raw.epoch != se.epoch:
+            fail("3o: restore(verify=False) is not the saved epoch")
+        raw.engine.spill.close()
+        del raw
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = StreamingEngine.restore(
+            ck, A.sssp(0), dataclasses.replace(
+                bcfg, spill_dir=str(Path(tmp) / "spill3")), device=DEV)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        counts["1m"] += launch_counts()[1]
+        warm = back.initial_result.metrics
+        if not (warm.converged and np.array_equal(back.values, se.values)
+                and warm.iterations < init.iterations / 2):
+            fail(f"3o: restore(verify=True) took {warm.iterations} "
+                 f"supersteps against the cold bootstrap's "
+                 f"{init.iterations}, or its values are not the live ones")
+        log(f"[ooc] 3o epoch {se.epoch} saved in {save_s:.2f} s; "
+            f"restore(verify=False) bitwise; restore(verify=True) under the "
+            f"budget in {restore_s:.2f} s: {warm.iterations} supersteps "
+            f"against the cold bootstrap's {init.iterations}, bitwise equal "
+            f"to the live values; {spill_line(warm)}")
+        # drain and stop the segment writers before the directory goes
+        se.engine.spill.close()
+        back.engine.spill.close()
+        del se, twin, back
+    log(f"[ooc] 3o launches: kernel 1 {counts['1']}, 1m {counts['1m']}, "
+        f"1lm {counts['1lm']}; phase 3o took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"[time] phase 3o ends at {time.perf_counter() - t_start:.1f} s")
+    return counts
+
+
+def ooc_alone() -> int:
+    """``--ooc-phase``: phase 3o alone, in one process: it builds the sweep
+    kernel and phase 3's PageRank graph and engine, runs it resident
+    (phase 3's run), then ``ooc_phase``. No result line."""
+    import torch
+    from repro_torch.kernels import _build
+    t_start = time.perf_counter()
+    log(f"[device] {card_line()}; torch {torch.__version__}")
+    _build.build("block_sweep")
+    engines, _ = main_path_engines(baseline=False, names=("pagerank",))
+    sa = engines["pagerank"][0]
+    zero_counts()
+    torch.cuda.synchronize()
+    res = sa.run(max_iterations=SA_CAP)
+    torch.cuda.synchronize()
+    launches = {"pagerank": launch_counts()[0]}
+    log(f"[run] pagerank structure-aware: iterations="
+        f"{res.metrics.iterations} wall_s={res.metrics.wall_time_s!r} "
+        f"host_syncs={res.host_syncs} sweep_launches={launches['pagerank']}")
+    ooc_phase(engines, {("pagerank", "structure-aware"): res}, launches,
+              t_start)
+    return 0
+
+
 @contextlib.contextmanager
 def group_of_one():
     """A process group of one rank (NCCL on the card) over a FileStore in a
@@ -2115,21 +2475,23 @@ def segment_repeats(repeats: int) -> int:
     return 0
 
 
-def main_path_engines(baseline: bool):
+def main_path_engines(baseline: bool, names=("pagerank", "sssp")):
     """Phase 3's graphs and engines (the structure-aware engine, and with
-    ``baseline`` the baseline beside it), with their set-up lines. Returns
-    ``({name: (sa, baseline or None)}, {name: graph})``."""
+    ``baseline`` the baseline beside it), with their set-up lines, for the
+    cases in ``names``. Returns ``({name: (sa, baseline or None)},
+    {name: graph})``."""
     from repro_torch.core import algorithms as A
     from repro_torch.core import graph as G
     from repro_torch.core.baseline import BaselineEngine
     from repro_torch.core.engine import EngineConfig, StructureAwareEngine
     t0 = time.perf_counter()
     cases = {
-        "pagerank": (A.pagerank(), G.core_periphery_graph(
+        "pagerank": lambda: (A.pagerank(), G.core_periphery_graph(
             N, avg_deg=AVG_DEG, seed=1, chords=1), T2_PAGERANK),
-        "sssp": (A.sssp(0), G.powerlaw_graph(N, avg_deg=AVG_DEG, seed=2,
-                                             weighted=True), T2),
+        "sssp": lambda: (A.sssp(0), G.powerlaw_graph(
+            N, avg_deg=AVG_DEG, seed=2, weighted=True), T2),
     }
+    cases = {name: cases[name]() for name in names}
     engines = {}
     for name, (prog, g, t2) in cases.items():
         cfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=t2)
@@ -3099,6 +3461,8 @@ def main() -> int:
         return sweep_profile()
     if sys.argv[1:2] == ["--ssd-profile"]:
         return ssd_profile()
+    if sys.argv[1:2] == ["--ooc-phase"]:
+        return ooc_alone()
     import numpy as np
     from repro_torch.core import algorithms as A
     from repro_torch.core import graph as G
@@ -3314,6 +3678,9 @@ def main() -> int:
     # -- phase 3t: the traced main path, its launches apart from phase 3's --
     log(f"[time] phase 3t starts at {time.perf_counter() - t_start:.1f} s")
     trace_phase(engines, results, sa_launches, t_start)
+    # -- phase 3o: the out-of-core tier and epoch persistence ---------------
+    log(f"[time] phase 3o starts at {time.perf_counter() - t_start:.1f} s")
+    ooc_phase(engines, results, sa_launches, t_start)
     # the loop names still hold the last engines and results: free them
     del engines, results, sa, base, eng, res, sa_r, base_r
 

@@ -66,8 +66,15 @@ loop emits ``run``, ``chunk`` and ``repartition`` spans and the rows as
 ``superstep`` counters into the installed recorder. A traced run is bitwise
 its untraced twin, and an untraced run enqueues nothing for the timeline.
 
-Fully resident: ``resident_blocks`` belongs to the out-of-core slice and
-raises ``NotImplementedError``.
+Out-of-core block tier (``EngineConfig.resident_blocks < P``): a
+:class:`repro_torch.ooc.store.SpillStore` keeps at most that many blocks'
+edge tile rows on the card. A host scheduler twin of the device select
+(``schedule.schedule_predictor``) predicts each superstep's blocks, which
+are paged in before the superstep is enqueued, so the schedule never
+changes and the run is bitwise the fully resident one. Paged chunks are one
+superstep each (one host read a superstep); the dispatch bucket still
+changes only at fired repartition boundaries, where the store also stages
+the next demand. Without a budget nothing of this runs.
 """
 from __future__ import annotations
 
@@ -88,10 +95,12 @@ from repro_torch.core.partition import (TILE, EdgeStorage, PartitionPlan,
 from repro_torch.core.repartition import RepartitionState
 from repro_torch.core.schedule import (Scheduler, Selection,
                                        make_device_select, pick_width,
-                                       width_ladder)
+                                       schedule_predictor, width_ladder)
 from repro_torch.kernels import block_sweep as kb
 from repro_torch.kernels import segment as kseg
 from repro_torch.obs import trace as obs_trace
+from repro_torch.ooc import prefetch as ooc_policy
+from repro_torch.ooc.store import SpillStore
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +123,14 @@ class EngineConfig:
     subblocks: int = 1  # sub-blocks per block (hierarchical activity)
     retire_after: int = 3  # consecutive sub-floor supersteps before retire
     min_width: int = 2  # narrowest dispatch-width bucket
-    resident_blocks: int | None = None  # only None (out-of-core slice)
+    # out-of-core block tier: device memory as a fixed budget of resident
+    # block slots. None (the default) = fully resident, no spill tier. With
+    # resident_blocks < P the engine evicts cold blocks' edge tile rows to
+    # the host (or spill_dir) and pages the predicted schedule back in
+    # before each superstep; the budget must be >= width + 2 (the slate
+    # plus the pinned pad blocks).
+    resident_blocks: int | None = None
+    spill_dir: str | None = None  # npz segment dir; None = host cache only
     tile_slack: float = 0.0  # spare tile capacity per block (streaming)
     spare_tiles: int = 0  # flat extra tiles per block (streaming)
     keep_dead_blocks: bool = False  # dead vertices get block slots (streaming)
@@ -122,10 +138,7 @@ class EngineConfig:
 
 
 def check_config(config: EngineConfig) -> None:
-    """Reject the options whose port belongs to a later slice."""
-    if config.resident_blocks is not None:
-        raise NotImplementedError(
-            "resident_blocks comes with the out-of-core slice")
+    """Reject the options the kernels cannot run."""
     if not 1 <= config.width <= kb.MAX_SLOTS:
         raise ValueError(f"width must be 1..{kb.MAX_SLOTS}")
     if config.subblocks < 1 or config.block_size % config.subblocks:
@@ -580,6 +593,15 @@ class StructureAwareEngine:
         # pad block for dispatch slots beyond the take counts (never ok)
         tile_cnt = plan.unified.tile_cnt
         self.pad_id = int(np.argmin(tile_cnt)) if tile_cnt.size else 0
+        # activity state of the last completed run (the epoch-persistence
+        # record; repro_torch.ooc.snapshot)
+        self.last_psd: np.ndarray | None = None
+        self.last_calm: np.ndarray | None = None
+        self.spill = None
+        if (config.resident_blocks is not None
+                and config.resident_blocks < plan.num_blocks):
+            self.spill = SpillStore(self, config.resident_blocks,
+                                    directory=config.spill_dir)
 
     def _configure(self, config: EngineConfig) -> EngineConfig:
         """The configuration the engine runs with (a subclass pins fields
@@ -688,33 +710,35 @@ class StructureAwareEngine:
         fields, the fold metadata included, since the commits rewrite tile
         rows and metadata in place. A caller that must keep reading this
         epoch across future commits (the query service's snapshot
-        isolation) copies first. O(m) device bytes, no host traffic."""
-        return EdgeData(*(t.clone() for t in self._ed))
+        isolation) copies first. O(m) device bytes, no host traffic, except
+        under an out-of-core budget, where the copy's spilled holes are
+        filled from the spill tier's truth and its run table refreshed
+        (residency and the live state unchanged): a pinned epoch must
+        survive the eviction of its blocks."""
+        ed = EdgeData(*(t.clone() for t in self._ed))
+        if self.spill is not None:
+            ed = self.spill.materialize(ed)
+        return ed
 
     def _copy_rows(self, targets, idx: np.ndarray, payloads,
                    chunk: int) -> int:
-        """Copy ``payloads`` into the live ``targets`` at ``idx``, in place,
-        in the reference's fixed-size chunks. Returns the entry count the
-        reference bills (whole chunks)."""
-        for at in range(0, idx.size, chunk):
-            i = torch.as_tensor(idx[at:at + chunk]).to(self.device)
-            for t, p in zip(targets, payloads):
-                t.index_copy_(0, i, torch.as_tensor(
-                    np.ascontiguousarray(p[at:at + chunk])).to(self.device))
+        """Copy ``payloads`` into ``targets`` at the (unique) ``idx``, in
+        place. Returns the entry count the reference bills: its fixed-size
+        chunks of ``chunk`` entries, whole."""
+        i = torch.as_tensor(idx).to(self.device)
+        for t, p in zip(targets, payloads):
+            t.index_copy_(0, i, torch.as_tensor(
+                np.ascontiguousarray(p)).to(self.device))
         return -(-idx.size // chunk) * chunk
 
-    def update_edge_rows(self, rows: np.ndarray, *, src, dst_local, w,
-                         valid) -> int:
-        """Copy updated TILE ROWS into the live EdgeData, recompute their
-        coverage, and refresh the kernel's fold metadata of the blocks that
-        own them. ``rows`` are unified-tile row indices; the payloads are
-        the matching (len(rows), TILE) slices. Returns the transferred
-        bytes as the reference bills them (chunked rows + indices; the fold
-        metadata is derived on the device and not billed)."""
-        rows = np.asarray(rows, dtype=np.int64)
-        if rows.size == 0:
-            return 0
-        c, ed = self.plan.block_size, self._ed
+    def fill_edge_rows(self, ed: EdgeData, rows: np.ndarray, *, src,
+                       dst_local, w, valid) -> int:
+        """Copy TILE ROWS into ``ed`` (the live state or a copy of it),
+        recompute their coverage, and refresh the run table of the blocks
+        that own them. ``rows`` are unified-tile row indices; the payloads
+        the matching (len(rows), TILE) slices. Returns the billed entry
+        count of :meth:`_copy_rows`."""
+        c = self.plan.block_size
         cov = tile_coverage(dst_local, valid, self.config.subblocks, c)
         pk = self._copy_rows(
             (ed.src, ed.dstl, ed.w, ed.valid, ed.cov), rows,
@@ -722,9 +746,37 @@ class StructureAwareEngine:
              np.asarray(w, np.float32), np.asarray(valid, bool), cov],
             self._ROW_CHUNK)
         kb.refresh_fold_metadata(ed, c, np.unique(self._row_block[rows]))
+        return pk
+
+    def update_edge_rows(self, rows: np.ndarray, *, src, dst_local, w,
+                         valid) -> int:
+        """Copy updated TILE ROWS into the live EdgeData
+        (:meth:`fill_edge_rows`). Returns the transferred bytes as the
+        reference bills them (chunked rows + indices; the fold metadata is
+        derived on the device and not billed)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if rows.size == 0:
+            return 0
+        pk = self.fill_edge_rows(self._ed, rows, src=src,
+                                 dst_local=dst_local, w=w, valid=valid)
         # 4B src + 4B dst offset + 4B w + 1B valid per slot + 1B per
         # sub-block coverage bit + 4B row index
-        return pk * (TILE * 13 + int(ed.cov.shape[1]) + 4)
+        return pk * (TILE * 13 + int(self._ed.cov.shape[1]) + 4)
+
+    def clear_edge_rows(self, rows: np.ndarray) -> None:
+        """Invalidate TILE ROWS of the live EdgeData on the device (a spill
+        eviction): zero them and their coverage, and refresh the run table
+        of the blocks that own them, whose runs and vertex spans then come
+        out empty. Nothing crosses to the device and nothing is billed."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if rows.size == 0:
+            return
+        ed = self._ed
+        idx = torch.as_tensor(rows).to(self.device)
+        for t in (ed.src, ed.dstl, ed.w, ed.valid, ed.cov):
+            t.index_fill_(0, idx, 0)
+        kb.refresh_fold_metadata(ed, self.plan.block_size,
+                                 np.unique(self._row_block[rows]))
 
     def update_aux(self, idx: np.ndarray, vals: np.ndarray) -> int:
         """Copy changed per-vertex aux entries into the live EdgeData.
@@ -900,11 +952,28 @@ class StructureAwareEngine:
         rec = obs_trace.current() if trace else None
         timeline: list | None = [] if trace else None
         acct_dev = torch.as_tensor(acct).to(dev) if trace else None
+        # out-of-core paging: the host scheduler twin predicts each
+        # superstep's blocks so they are paged in before the sweeps read
+        # them; residency never changes the schedule. Paged chunks are one
+        # superstep each (the demand changes every superstep); the bucket
+        # still changes only at fired boundaries, the resident cadence.
+        spill = self.spill
+        if spill is not None:
+            spill.begin_run()
+            pred = schedule_predictor(self._ladder[0], i2, cfg.cold_frac,
+                                      self._psd_floor())
 
         with Timer() as t:
             it = 0
             while it < max_it:
-                it_end = rep.chunk_end(max_it)
+                if spill is None:
+                    it_end = rep.chunk_end(max_it)
+                else:
+                    pred.width = wb
+                    sel = pred.select(it, psd_sub_host, rep.is_hot)
+                    spill.admit(ooc_policy.demand_blocks(sel, self.pad_id),
+                                psd_host, calm_host)
+                    it_end = it + 1
                 # the chunk span runs from the first enqueue to the
                 # boundary read, which waits for the chunk's device work
                 with obs_trace.span("chunk", cat="engine", it0=it,
@@ -1010,20 +1079,39 @@ class StructureAwareEngine:
                 if it_new == it:  # schedule went empty: nothing left to do
                     break
                 it = it_new
+                # a no-op until it - 1 reaches the boundary, so paged
+                # one-superstep chunks fire on the resident cadence
                 with obs_trace.span("repartition", cat="engine",
                                     iteration=it - 1) as rsp:
-                    rsp.set(fired=rep.maybe_repartition(it - 1, psd_host,
-                                                        cfg.hot_ratio))
-                wb = self._pick_width(self._active_count(calm_host),
-                                      psd_host)
-        return self._finish(metrics, t.elapsed, it, width_iters, calm_host,
-                            depth_hist, sb_total, values, history, syncs,
-                            timeline)
+                    fired = rep.maybe_repartition(it - 1, psd_host,
+                                                  cfg.hot_ratio)
+                    rsp.set(fired=fired)
+                # resident chunks end at boundaries, so this is the same
+                # cadence: a paged retarget at every superstep would change
+                # the cold quota and fork the trajectory
+                if spill is None or fired:
+                    wb = self._pick_width(self._active_count(calm_host),
+                                          psd_host)
+                if spill is not None and fired:
+                    # stage the predicted next demand and the hottest
+                    # non-resident blocks, swapping out retired ones only
+                    pred.width = wb
+                    nsel = pred.select(it, psd_sub_host, rep.is_hot)
+                    spill.prefetch_boundary(
+                        ooc_policy.demand_blocks(nsel, self.pad_id),
+                        psd_host, calm_host)
+        return self._finish(metrics, t.elapsed, it, width_iters,
+                            psd_sub_host, calm_host, depth_hist, sb_total,
+                            values, history, syncs, timeline)
 
-    def _finish(self, metrics, elapsed, it, width_iters, calm_host,
+    def _finish(self, metrics, elapsed, it, width_iters, psd_sub, calm_host,
                 depth_hist, sb_total, values, history, syncs,
                 timeline=None) -> RunResult:
         p = self.plan
+        if self.spill is not None:
+            self.spill.flush_metrics(metrics)
+        self.last_psd = psd_sub
+        self.last_calm = np.asarray(calm_host)
         metrics.iterations = it
         metrics.wall_time_s = elapsed
         metrics.mean_dispatch_width = width_iters / max(it, 1)
@@ -1079,6 +1167,10 @@ class StructureAwareEngine:
         # and post-superstep state the device-resident loop's rows read
         timeline: list | None = [] if trace else None
         acct = self._acct_table() if trace else None
+        spill = self.spill
+        if spill is not None:
+            spill.begin_run()
+            calm_now = calm_host  # the calm counters the store ranks by
 
         with Timer() as t:
             it = 0
@@ -1086,6 +1178,11 @@ class StructureAwareEngine:
                 sel: Selection = sched.select(it, psd_sub, rep.is_hot)
                 if sel.hot_ids.size == 0 and sel.cold_ids.size == 0:
                     break
+                if spill is not None:
+                    # page the slate in before the dispatch reads it (block
+                    # 0, the dispatch's row padding, is pinned resident)
+                    spill.admit(ooc_policy.demand_blocks(sel, self.pad_id),
+                                psd_host, calm_now)
                 processed = np.concatenate([sel.hot_ids, sel.cold_ids])
                 sb_total += int((psd_sub[processed] >= floor).sum())
                 self._dispatch(values, psd, dmax, sel.hot_ids,
@@ -1101,6 +1198,8 @@ class StructureAwareEngine:
                 psd_sub = psd.cpu().numpy()
                 psd_host = state_lib.fold_subblock_psd(psd_sub)
                 syncs += 1
+                if spill is not None:
+                    calm_now = calm.cpu().numpy()
                 if trace:  # the iteration's read, with calm beside psd
                     finite = psd_host < state_lib.UNSEEN
                     fin = psd_host[finite].astype(np.float32)
@@ -1120,6 +1219,13 @@ class StructureAwareEngine:
                     calm_host = calm.cpu().numpy()
                     sched.width = self._pick_width(
                         self._active_count(calm_host), psd_host)
+                if fired and spill is not None:
+                    # boundary prefetch: the predicted next demand and the
+                    # hottest non-resident blocks
+                    nsel = sched.select(it + 1, psd_sub, rep.is_hot)
+                    spill.prefetch_boundary(
+                        ooc_policy.demand_blocks(nsel, self.pad_id),
+                        psd_host, calm_now)
                 history.append({
                     "iteration": it,
                     "psd_sum": float(psd_host[psd_host <
@@ -1138,9 +1244,9 @@ class StructureAwareEngine:
                           hslots.tolist()):
             if cnt:
                 depth_hist[int(d)] = depth_hist.get(int(d), 0) + int(cnt)
-        return self._finish(metrics, t.elapsed, it, width_iters, calm_host,
-                            depth_hist, sb_total, values, history, syncs,
-                            timeline)
+        return self._finish(metrics, t.elapsed, it, width_iters, psd_sub,
+                            calm_host, depth_hist, sb_total, values, history,
+                            syncs, timeline)
 
 
 def _init_dead(program: VertexProgram, plan: PartitionPlan,

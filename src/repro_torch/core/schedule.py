@@ -132,6 +132,21 @@ def make_device_select(width: int, cold_frac: float,
     return select
 
 
+def schedule_predictor(width: int, i2: int, cold_frac: float,
+                       min_psd: float) -> Scheduler:
+    """The out-of-core tier's lookahead: a host :class:`Scheduler` twin of
+    :func:`make_device_select`. The two are decision-identical
+    (tests/test_torch_select.py, tests/test_torch_ooc.py), so one numpy
+    ``select`` tells the spill tier which blocks the next device superstep
+    reads before the device runs it: ``repro_torch.ooc.store.SpillStore``
+    pages that demand in ahead of the sweep without changing the schedule,
+    and a run under a budget stays bitwise the fully resident one. The
+    engine sets ``.width`` at fired repartition boundaries (the cold quota
+    depends on the width, so the predictor tracks the live bucket)."""
+    return Scheduler(width=width, i2=i2, cold_frac=cold_frac,
+                     min_psd=min_psd)
+
+
 # -- adaptive active-set helpers ---------------------------------------------
 def width_ladder(width: int, min_width: int = 2) -> list[int]:
     """Descending dispatch-width buckets: the configured width, then powers

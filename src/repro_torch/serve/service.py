@@ -26,6 +26,14 @@ edge data in place reuse it; a plan rebuild makes a new one, and the old
 engine's lane engines (and their device scratch) are dropped once no
 pending query pins that engine.
 
+Out-of-core budgets (``EngineConfig.resident_blocks``): pinned epochs
+survive eviction. The spill tier's pre-eviction hook preserves every live
+pin before the eviction zeroes rows on the card, and a pin taken while
+blocks are already spilled fills the holes of its copy from the tier's
+truth, run table included (``StreamingEngine.snapshot`` /
+``EpochState.ed``), so lane batches always read a whole, consistent edge
+state even when the live engine keeps a fraction of the graph resident.
+
 With a :mod:`repro_torch.obs` recorder installed, each lane batch runs in a
 ``query_batch`` span (lanes, family, epoch, then its supersteps), which
 ends at the batch's last device read.

@@ -50,8 +50,15 @@ just a good initial guess.
 Snapshot isolation for the query service (``snapshot`` -> :class:`EpochState`):
 a pin copies the epoch's host bookkeeping at once and its device edge state
 only when an ingest is about to mutate it, in the ingest preamble, before
-any commit; pins of one epoch share that copy. ``save_epoch``/``restore``
-belong to the out-of-core slice and raise ``NotImplementedError`` here.
+any commit; pins of one epoch share that copy. Under an out-of-core budget
+(``EngineConfig.resident_blocks``) a pin taken while blocks are spilled is
+preserved at once (the copy's holes filled from the spill tier), and the
+tier's pre-eviction hook preserves every live pin before rows leave the
+card.
+
+Epoch persistence (:mod:`repro_torch.ooc.snapshot`): ``save_epoch`` writes
+the epoch's COO truth, fixpoint values and activity state; ``restore``
+rebuilds the epoch from the COO and warm-starts from the values.
 
 With a :mod:`repro_torch.obs` recorder installed, ``snapshot`` emits a
 ``snapshot`` span and ``ingest`` an ``ingest`` span around a ``reconverge``
@@ -74,6 +81,7 @@ from repro_torch.core.graph import Graph, edges_of, from_edges, symmetrize
 from repro_torch.core.metrics import StreamMetrics, Timer
 from repro_torch.core.schedule import adaptive_i2
 from repro_torch.obs import trace as obs_trace
+from repro_torch.ooc.snapshot import GraphCheckpoint
 from repro_torch.stream.apply import EdgeStore, MutableTiledState
 from repro_torch.stream.delta import DeltaBatch
 
@@ -174,6 +182,14 @@ class EpochState:
 
     @property
     def ed(self) -> EdgeData:
+        if self._ed is None:
+            spill = self.engine.spill
+            if spill is not None and spill.spilled_blocks.size:
+                # safety net: never hand out a live view with spilled holes;
+                # copy and fill them instead. The eager paths (snapshot()
+                # under spill, the eviction hook, the ingest preamble)
+                # normally preserve before this fires.
+                self.preserve()
         return self._ed if self._ed is not None else self.engine.edge_state
 
     @property
@@ -221,6 +237,13 @@ class StreamingEngine:
                 coupling_counts=self.W.copy(), out_deg=self.out_deg.copy(),
                 in_deg=self.in_deg.copy(),
                 edge_counts=np.array(self.engine.edge_counts))
+            spill = self.engine.spill
+            if spill is not None and spill.spilled_blocks.size:
+                # the live edge state already has spilled holes: preserve
+                # now (edge_snapshot fills them from the spill tier), not at
+                # the next ingest, since the pin must be readable before
+                es.preserve()
+                self.metrics.snapshots_preserved += 1
             self._snapshots.append(weakref.ref(es))
         return es
 
@@ -245,14 +268,13 @@ class StreamingEngine:
         self._snapshots = []
         return copies
 
-    # -- later slices -------------------------------------------------------
-    def save_epoch(self, ckpt, step: int | None = None):
-        raise NotImplementedError(
-            "save_epoch comes with the out-of-core slice")
-
-    @classmethod
-    def restore(cls, *args, **kwargs):
-        raise NotImplementedError("restore comes with the out-of-core slice")
+    def _on_spill_evict(self) -> None:
+        """Spill-tier pre-eviction hook: pinned epochs must survive the
+        eviction of their blocks. The eviction really zeroes the rows on
+        the card, so every live pin is preserved first (``edge_snapshot``
+        fills the holes already spilled; the rows about to go are still
+        resident when the hook runs)."""
+        self.metrics.snapshots_preserved += self._preserve_pinned()
 
     # -- epoch management ----------------------------------------------------
     def _build_epoch(self, src: np.ndarray, dst: np.ndarray,
@@ -281,10 +303,22 @@ class StreamingEngine:
         self._init_values = np.asarray(self.program.init(g)[0])
         # build the sweep kernel at epoch build, not inside a batch
         self.engine.prewarm_buckets()
+        spill = self.engine.spill
+        if spill is not None:
+            # the host tile mirror is the truth under ingest: evictions
+            # need no read from the card, and fetches copy the CURRENT
+            # truth even for blocks mutated while spilled (a commit to a
+            # non-resident block is harmless: the fetch overwrites its rows)
+            spill.row_source = self.tiles.rows2d
+            spill.on_evict = self._on_spill_evict
 
     def _rebuild_epoch(self) -> None:
         ps, pd, w = self.store.live_base()
         order = self.engine.plan.order
+        if self.engine.spill is not None:
+            # the old epoch's queued segments land before the new store
+            # writes to the same directory, and its writer thread ends
+            self.engine.spill.close()
         self._build_epoch(order[ps], order[pd], w)
         self.metrics.plan_rebuilds += 1
 
@@ -307,6 +341,69 @@ class StreamingEngine:
         a = self.engine.plan.alpha if alpha is None else alpha
         d = (self.out_deg + a * self.in_deg)
         return d[self.engine.plan.inv]
+
+    # -- epoch persistence (warm restarts; repro_torch.ooc.snapshot) --------
+    def save_epoch(self, ckpt, step: int | None = None):
+        """Persist the current epoch (edge truth, fixpoint values, activity
+        state) through a :class:`repro_torch.ooc.snapshot.GraphCheckpoint`.
+        ``ckpt`` is a directory path or a GraphCheckpoint; ``step`` defaults
+        to the epoch counter. Every state between batches is a fixpoint
+        (ingest ends with reconvergence), so the snapshot is consistent.
+        Returns the checkpoint (``.wait()`` blocks on the async writer)."""
+        if not isinstance(ckpt, GraphCheckpoint):
+            ckpt = GraphCheckpoint(ckpt)
+        ckpt.save(self, step)
+        return ckpt
+
+    @classmethod
+    def restore(cls, ckpt, program: VertexProgram,
+                config: EngineConfig = EngineConfig(),
+                stream: StreamConfig = StreamConfig(),
+                step: int | None = None, verify: bool = True,
+                device="cuda"):
+        """Warm-restart a StreamingEngine on ``device`` from a saved epoch.
+        The epoch's geometry is rebuilt from the checkpointed COO
+        (``build_plan`` is a pure function of the edge set and config, the
+        path every overflow batch takes), and the engine starts from the
+        checkpointed fixpoint values instead of ``program.init``. With
+        ``verify`` (the default) a verification pass re-heats every block
+        once (PSD = UNSEEN, universal mode) and reconverges; from a fixpoint
+        the deltas die at once (``initial_result`` holds its metrics).
+        ``verify=False`` trusts the checkpoint and skips the run. A
+        checkpoint written under one residency budget restores under any
+        other (``config.resident_blocks`` applies to the new engine)."""
+        if not isinstance(ckpt, GraphCheckpoint):
+            ckpt = GraphCheckpoint(ckpt)
+        tree, meta = ckpt.load(step)
+        src, dst, w = tree["edges"]
+        self = cls.__new__(cls)
+        self.program = program
+        self.stream = stream
+        self.device = resolve_device(device)
+        self.config = dataclasses.replace(
+            config, tile_slack=stream.tile_slack,
+            spare_tiles=stream.spare_tiles, keep_dead_blocks=True)
+        self.metrics = StreamMetrics()
+        self.n = int(meta["n"])
+        self.epoch = int(meta["epoch"])
+        self._snapshots = []
+        self._build_epoch(np.asarray(src, dtype=np.int64),
+                          np.asarray(dst, dtype=np.int64),
+                          np.asarray(w, dtype=np.float32))
+        self._values = np.asarray(tree["values"])
+        self.initial_result = None
+        self.restored_meta = meta
+        if verify:
+            plan = self.engine.plan
+            vals = self._values[plan.order].astype(np.float32)
+            res = self.engine.run(warm=WarmStart(
+                values=self.engine.pad_values(vals),
+                psd=state_lib.init_psd(plan.num_blocks,
+                                       self.config.subblocks),
+                is_hot=np.ones(plan.num_blocks, dtype=bool)))
+            self._values = res.values
+            self.initial_result = res
+        return self
 
     # -- ingest --------------------------------------------------------------
     def ingest(self, batch: DeltaBatch) -> StreamBatchReport:

@@ -113,21 +113,17 @@ def test_non_adaptive_engine_matches_reference():
 
 
 def test_later_slices_raise():
-    """What belongs to later slices raises; sub-blocks, warm starts and
-    epoch snapshots run (tracing too: tests/test_torch_obs.py)."""
+    """What belongs to later slices is absent (the reference's
+    ``use_pallas`` field: the port has one route, its kernels); sub-blocks,
+    warm starts and epoch snapshots run (tracing too:
+    tests/test_torch_obs.py; the out-of-core tier and epoch persistence:
+    tests/test_torch_ooc.py)."""
     from repro_torch.stream import StreamingEngine
     tg = TG.powerlaw_graph(300, 3, seed=0)
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        TEngine(tg, TA.sssp(), TConfig(block_size=64, resident_blocks=3),
-                device="cpu")
     TEngine(tg, TA.sssp(), TConfig(block_size=64, subblocks=4), device="cpu")
     se = StreamingEngine(tg, TA.sssp(), TConfig(block_size=64),
                          device="cpu")
     assert se.snapshot().epoch == 0
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        se.save_epoch("unused")
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        StreamingEngine.restore("unused", TA.sssp())
     assert "use_pallas" not in {f.name for f in
                                 dataclasses.fields(TConfig)}
 

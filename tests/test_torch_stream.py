@@ -242,12 +242,25 @@ def test_sweeps_on_mutated_layouts(algo, s):
             assert torch.equal(a, b), (algo, masked)
 
 
-def test_streaming_graph_example_on_cpu(capsys):
+@pytest.mark.parametrize("ooc", [False, True], ids=["resident", "ooc"])
+def test_streaming_graph_example_on_cpu(capsys, tmp_path, ooc):
+    """The demo as a user runs it; ``ooc`` adds ``--resident-blocks`` (a
+    budget under the demo's P) and ``--snapshot-dir`` (save, restore and
+    warm-reconverge)."""
     from repro_torch import streaming_graph
-    streaming_graph.main(["--n", "2000", "--batches", "2", "--batch-size",
-                          "30", "--subblocks", "4", "--device", "cpu"])
+    if not ooc:
+        streaming_graph.main(["--n", "2000", "--batches", "2",
+                              "--batch-size", "30", "--subblocks", "4",
+                              "--device", "cpu"])
+        out = capsys.readouterr().out
+        assert "warm == cold" in out and "sub-block dirty" in out
+        return
+    streaming_graph.main(["--n", "12000", "--batches", "2", "--batch-size",
+                          "60", "--resident-blocks", "18", "--snapshot-dir",
+                          str(tmp_path / "epoch"), "--device", "cpu"])
     out = capsys.readouterr().out
-    assert "warm == cold" in out and "sub-block dirty" in out
+    assert "warm == cold" in out and "out-of-core: 18/24" in out
+    assert "epoch persistence: saved epoch 2" in out
 
 
 @pytest.mark.parametrize("algo", ["pagerank", "sssp"])
