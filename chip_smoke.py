@@ -6,6 +6,7 @@
     python3 chip_smoke.py --sweep-profile  # kernels 1/1m/1l/1lm's shapes alone
     python3 chip_smoke.py --ssd-profile  # kernel 5 at the two models' shapes
     python3 chip_smoke.py --ooc-phase  # phase 3o alone
+    python3 chip_smoke.py --contracts-phase  # phase 3c alone
 
 Phases (any failed check exits non-zero; nothing is caught and passed over):
 
@@ -89,6 +90,25 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    ingest and query_batch carry their runs' supersteps, kernels 1m and 1lm
    launch, the answers equal Bellman-Ford's. Betweenness from BC_SOURCES on
    powerlaw_graph(2^17, seed=TRACE_SEED + 1) through both engines, bitwise.
+3c. The contract checker on phase 3's engines (``--contracts-phase``: this
+   phase alone, after phase 3's graphs and engines; ~20 s):
+   a. ``python -m repro_torch.analysis --check`` on the card in a
+      subprocess, started first and run beside (b): the lint over
+      src/repro_torch, the contracts enforced on the card (the device
+      select against its host twin, a tiny engine and lane engine run
+      twice through kernels 1 and 1l), the golden op file (recorded on the
+      CPU, so skipped here). It must exit 0; its findings line, the number
+      of contracts and the golden status are printed.
+   b. One ``_get_chunk`` call, from a cold run's first boundary over the
+      run's first chunk, of phase 3's PageRank engine (kernel 1), of the
+      same engine traced (trace cap 16), of phase 3's SSSP engine
+      (kernel 1), of an L = LANES k_sssp lane batch on the SSSP engine
+      (kernel 1l), and of an S = 8 SSSP engine on weighted
+      powerlaw_graph(CONTRACT_N, seed=2) and a lane batch on it (kernels
+      1m and 1lm; sources from CONTRACT_SEED), each under
+      torch.cuda.set_sync_debug_mode("error"): no call may synchronize,
+      each must launch its kernel, and every tensor of its state must
+      equal, bitwise, a twin call from the same start without the mode.
 3o. The out-of-core tier and epoch persistence (``--ooc-phase``: this
    phase alone, after phase 3's PageRank graph, engine and run), its
    launches counted apart from phase 3's, its draws from its own seed
@@ -374,6 +394,9 @@ TRACE_CAP = 300  # phase 3t: the SSSP run's superstep cap, traced and not
 TRACE_HOST_CAP = 40  # phase 3t: the host loop's cap beside it
 TRACE_SEED = 120  # phase 3t's graphs and query sources: their own seed
 BC_SOURCES = [0, 3]  # phase 3t: betweenness's sources
+CONTRACT_SEED = 140  # phase 3c's lane sources: their own seed
+CONTRACT_N = 1 << 17  # phase 3c's S = 8 engine (5c's size)
+CONTRACT_TIMEOUT = 300  # phase 3c: the checker subprocess's limit, in s
 OOC_SEED = 130  # phase 3o's graph, batches and query sources: its own seed
 OOC_CAP = 400  # phase 3o: the budget run's superstep cap (None: whole run;
 # whole, it took 79.1 s, 3.94x the resident run; at 1000, 24.6 s; at 600,
@@ -2034,6 +2057,252 @@ def trace_phase(engines, results, sa_launches, t_start):
     log(f"[time] phase 3t ends at {time.perf_counter() - t_start:.1f} s")
 
 
+def bitwise_state(a: dict, b: dict) -> list:
+    """The names of the tensors of two states that differ in any bit."""
+    import torch
+
+    def same(x, y):
+        if x.dtype.is_floating_point:
+            return x.shape == y.shape and same_bits(x, y)
+        return torch.equal(x, y)
+
+    return [k for k in a if not same(a[k], b[k])]
+
+
+def chunk_without_sync(label, make_state, call, counts):
+    """One chunk from ``make_state()`` under
+    torch.cuda.set_sync_debug_mode("error"), then its twin from a second
+    ``make_state()`` without the mode: fails if the first call synchronizes
+    or if any tensor of the two states (in place and returned) differs in a
+    bit. ``call(state)`` enqueues the chunk and returns its new tensors by
+    name; ``counts()`` reads the launch counts that show its kernel ran.
+    Returns the first call's launches."""
+    import torch
+    first, twin = make_state(), make_state()
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first.update(call(first))
+    except RuntimeError as err:
+        fail(f"3c: {label}: a host sync inside the chunk: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = counts()
+    torch.cuda.synchronize()
+    twin.update(call(twin))
+    torch.cuda.synchronize()
+    differ = bitwise_state(first, twin)
+    if differ:
+        fail(f"3c: {label}: the chunk under the debug mode differs from "
+             f"its twin in {differ}")
+    if not launches:
+        fail(f"3c: {label}: the chunk launched no kernel")
+    log(f"[contracts] 3c {label}: the run's first chunk "
+        f"({int(first['it'])} supersteps), {launches} kernel launches, under "
+        f"torch.cuda.set_sync_debug_mode('error'): no host sync; "
+        f"{', '.join(first)} bitwise the twin's without the mode")
+    return launches
+
+
+def engine_chunk(sa, trace_cap=None):
+    """(make_state, call) of the structure-aware engine's chunk from a cold
+    run's first boundary (superstep 0), over the run's first chunk at the
+    width the run picks."""
+    import torch
+    from repro_torch.core import state as state_lib
+    from repro_torch.core.engine import (TIMELINE_FLOAT_COLS,
+                                         TIMELINE_INT_COLS)
+    p, dev = sa.plan, sa.device
+    _, _, psd_host, rep, calm_host, i2 = sa._start_state(None)
+    span = rep.chunk_end(SA_CAP)
+    wb = sa._pick_width(sa._active_count(calm_host),
+                        state_lib.fold_subblock_psd(psd_host))
+    is_hot = torch.as_tensor(rep.is_hot).to(dev)
+    acct = torch.as_tensor(sa._acct_table()).to(dev)
+    chunk = sa._get_chunk(wb, trace_cap)
+
+    def make_state():
+        values, psd, _, _, calm, _ = sa._start_state(None)
+        st = dict(values=values, psd=psd, dmax=torch.zeros_like(psd),
+                  calm=torch.as_tensor(calm).to(dev),
+                  counts=torch.zeros(p.num_blocks, dtype=torch.int32,
+                                     device=dev),
+                  hslots=torch.zeros(wb, dtype=torch.int32, device=dev),
+                  sbacc=torch.zeros((), dtype=torch.int64, device=dev),
+                  it=torch.zeros((), dtype=torch.int64, device=dev))
+        if trace_cap is not None:
+            st["hist_i"] = torch.zeros((trace_cap, len(TIMELINE_INT_COLS)),
+                                       dtype=torch.int64, device=dev)
+            st["hist_f"] = torch.zeros(
+                (trace_cap, len(TIMELINE_FLOAT_COLS)), device=dev)
+        return st
+
+    def call(st):
+        hist = (() if trace_cap is None
+                else (acct, st["hist_i"], st["hist_f"]))
+        psd, dmax, calm = chunk(
+            sa._ed, sa._coupling_dev, st["values"], st["psd"], st["dmax"],
+            st["calm"], st["counts"], st["hslots"], st["sbacc"], st["it"],
+            is_hot, 0, span, i2, *hist)
+        return dict(psd=psd, dmax=dmax, calm=calm)
+
+    return make_state, call
+
+
+def lane_chunk(sa, sources):
+    """(make_state, call) of a k_sssp lane batch's chunk on ``sa``'s
+    epoch, from the batch's first boundary, as ``LaneEngine.run`` starts
+    it."""
+    import numpy as np
+    import torch
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import state as state_lib
+    from repro_torch.core.engine import dispatch_width
+    from repro_torch.kernels import block_sweep as kb
+    from repro_torch.serve.lanes import LaneEngine
+    p, cfg, dev = sa.plan, sa.config, sa.device
+    lane = LaneEngine(sa, A.k_source_sssp())
+    nl = len(sources)
+    values0, _ = lane.program.lane_init(p.graph.n, sources)
+    start = lane._start_state(values0, None, np.ones(nl, bool))
+    rep = start[5]
+    span = rep.chunk_end(SERVE_CAP)
+    wb = dispatch_width(cfg, sa._ladder, sa._active_count(start[4]),
+                        state_lib.fold_lane_psd(start[2], start[3]))
+    is_hot = torch.as_tensor(rep.is_hot).to(dev)
+    scratch = kb.make_lane_scratch(sa.edge_state, p.block_size, nl)
+    chunk = lane._get_chunk(wb)
+
+    def make_state():
+        vals, vc, psd, done, calm, _ = lane._start_state(
+            values0, None, np.ones(nl, bool))
+        psd = torch.tensor(psd, device=dev)
+        return dict(values=torch.tensor(vals, device=dev),
+                    vconst=torch.tensor(vc, device=dev), psd=psd,
+                    dmax=torch.zeros_like(psd),
+                    calm=torch.tensor(calm, device=dev),
+                    lane_done=torch.tensor(done, device=dev),
+                    lane_it=torch.zeros(nl, dtype=torch.int64, device=dev),
+                    counts=torch.zeros(p.num_blocks, dtype=torch.int32,
+                                       device=dev),
+                    hslots=torch.zeros(wb, dtype=torch.int32, device=dev),
+                    sbacc=torch.zeros((), dtype=torch.int64, device=dev),
+                    it=torch.zeros((), dtype=torch.int64, device=dev))
+
+    def call(st):
+        out = chunk(sa.edge_state, sa._coupling_dev, st["vconst"],
+                    st["values"], st["psd"], st["dmax"], st["calm"],
+                    st["counts"], st["hslots"], st["sbacc"], st["lane_done"],
+                    st["lane_it"], st["it"], is_hot, 0, span, cfg.i2,
+                    scratch)
+        return dict(zip(("psd", "dmax", "calm", "lane_done", "lane_it"),
+                        out))
+
+    return make_state, call
+
+
+def contracts_phase(engines, t_start):
+    """Phase 3c: the port's contract checker on the card, in a subprocess,
+    beside the chunks of phase 3's engines (and of an S = 8 engine at
+    CONTRACT_N) run under torch.cuda.set_sync_debug_mode("error")."""
+    import os
+    import numpy as np
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import graph as G
+    from repro_torch.core.engine import EngineConfig, StructureAwareEngine
+    t0 = time.perf_counter()
+
+    def checker():
+        # (a) python -m repro_torch.analysis --check on the card
+        t = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--check",
+             "--device", DEV], cwd=ROOT, capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            timeout=CONTRACT_TIMEOUT)
+        return out, time.perf_counter() - t
+
+    # started first, so that it runs beside (b); subprocess.run kills it
+    # at its time limit
+    with ThreadPoolExecutor(1) as pool:
+        sub = pool.submit(checker)
+        # (b) the chunks, each from a run's first boundary
+        launches = {}
+        pr, sssp = engines["pagerank"][0], engines["sssp"][0]
+        crng = np.random.default_rng(CONTRACT_SEED)
+        sources = [int(v) for v in crng.choice(sssp.plan.graph.n, LANES,
+                                               replace=False)]
+
+        def kernel_1():
+            return launch_counts()[0]
+
+        def kernel_1m():
+            return launch_counts()[1]
+
+        def kernel_1l():
+            return lane_counts()[0]
+
+        def kernel_1lm():
+            return lane_counts()[1]
+
+        launches["1"] = chunk_without_sync(
+            "pagerank chunk (kernel 1)", *engine_chunk(pr), kernel_1)
+        launches["1"] += chunk_without_sync(
+            "pagerank traced chunk, trace cap 16 (kernel 1)",
+            *engine_chunk(pr, 16), kernel_1)
+        launches["1"] += chunk_without_sync(
+            "sssp chunk (kernel 1)", *engine_chunk(sssp), kernel_1)
+        launches["1l"] = chunk_without_sync(
+            f"sssp lane chunk, L = {LANES} (kernel 1l)",
+            *lane_chunk(sssp, sources), kernel_1l)
+        g8 = G.powerlaw_graph(CONTRACT_N, avg_deg=AVG_DEG, seed=2,
+                              weighted=True)
+        e8 = StructureAwareEngine(g8, A.sssp(0), EngineConfig(
+            block_size=BLOCK, width=WIDTH, t2=T2, subblocks=SUB),
+            device=DEV)
+        launches["1m"] = chunk_without_sync(
+            f"sssp S={SUB} chunk on powerlaw_graph(n={g8.n}) (kernel 1m)",
+            *engine_chunk(e8), kernel_1m)
+        launches["1lm"] = chunk_without_sync(
+            f"sssp S={SUB} lane chunk, L = {LANES}, on powerlaw_graph("
+            f"n={g8.n}) (kernel 1lm)",
+            *lane_chunk(e8, [int(v) for v in crng.choice(
+                g8.n, LANES, replace=False)]), kernel_1lm)
+        del e8, g8
+        b_s = time.perf_counter() - t0
+        proc, sub_s = sub.result()
+    out, err = proc.stdout, proc.stderr
+    lines = out.strip().splitlines()
+    summary = [x for x in lines if x.startswith("repro_torch.analysis:")]
+    golden = [x for x in lines if x.startswith("golden ops:")]
+    if proc.returncode != 0 or not summary:
+        fail(f"3c: python -m repro_torch.analysis --check exited "
+             f"{proc.returncode}:\n{out}\n{err}")
+    log(f"[contracts] 3c python -m repro_torch.analysis --check on "
+        f"{DEV}: exit {proc.returncode}; {summary[-1]}; "
+        f"{golden[-1] if golden else 'golden ops: not reported'}")
+    log(f"[contracts] 3c launches under the debug mode: {launches}; phase "
+        f"3c took {time.perf_counter() - t0:.1f} s (the chunks {b_s:.1f} s, "
+        f"the checker's subprocess {sub_s:.1f} s beside them)")
+    log(f"[time] phase 3c ends at {time.perf_counter() - t_start:.1f} s")
+
+
+def contracts_alone() -> int:
+    """``--contracts-phase``: phase 3c alone, in one process: it builds the
+    sweep kernel and phase 3's graphs and engines (no runs: the chunks
+    start from a run's first boundary), then ``contracts_phase``. No
+    result line."""
+    import torch
+    from repro_torch.kernels import _build
+    t_start = time.perf_counter()
+    log(f"[device] {card_line()}; torch {torch.__version__}")
+    _build.build("block_sweep")
+    engines, _ = main_path_engines(baseline=False)
+    contracts_phase(engines, t_start)
+    return 0
+
+
 def spill_line(m) -> str:
     """A run's (or a batch report's) spill counters, as printed."""
     asked = m.prefetch_hits + m.prefetch_misses
@@ -3463,6 +3732,8 @@ def main() -> int:
         return ssd_profile()
     if sys.argv[1:2] == ["--ooc-phase"]:
         return ooc_alone()
+    if sys.argv[1:2] == ["--contracts-phase"]:
+        return contracts_alone()
     import numpy as np
     from repro_torch.core import algorithms as A
     from repro_torch.core import graph as G
@@ -3678,6 +3949,9 @@ def main() -> int:
     # -- phase 3t: the traced main path, its launches apart from phase 3's --
     log(f"[time] phase 3t starts at {time.perf_counter() - t_start:.1f} s")
     trace_phase(engines, results, sa_launches, t_start)
+    # -- phase 3c: the contract checker, and the chunks without host syncs --
+    log(f"[time] phase 3c starts at {time.perf_counter() - t_start:.1f} s")
+    contracts_phase(engines, t_start)
     # -- phase 3o: the out-of-core tier and epoch persistence ---------------
     log(f"[time] phase 3o starts at {time.perf_counter() - t_start:.1f} s")
     ooc_phase(engines, results, sa_launches, t_start)

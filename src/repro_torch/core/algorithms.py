@@ -12,6 +12,14 @@ kernel gets its float constants from :meth:`VertexProgram.kernel_consts`.
 The numpy hooks (``init``, ``aux_fn``, ``aux_delta``, ``reset_on_delete*``)
 are copies of the reference's.
 
+The registered programs carry the reference's contracts
+(:mod:`repro_torch.analysis.contracts`): every ``init``/``lane_init`` is
+``@structure_independent`` (the streaming engine re-applies an init snapshot
+and the query lanes init over epoch snapshots) and every ``edge_map``,
+``apply``, ``sd_delta``, ``aux_fn`` and ``aux_delta`` is ``@elementwise``
+(the streaming engine evaluates ``aux_fn`` on the vertices whose degrees
+moved); ``python -m repro_torch.analysis`` enforces both.
+
 Arithmetic is pinned to the reference (XLA on CPU, under ``jit``):
 PageRank's ``apply`` ``(1-d)/n + d*agg`` is fused by XLA into one FMA, with
 ``d`` and ``(1-d)/n`` rounded to f32 as JAX weak-types Python floats. Here it
@@ -27,6 +35,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import elementwise, structure_independent
 from repro_torch.core.graph import Graph
 
 INF = np.float32(1e18)  # finite 'infinity': keeps inf-inf NaNs out of f32 math
@@ -134,28 +143,34 @@ def _zero_if(cond: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
 def pagerank(damping: float = 0.85) -> VertexProgram:
     d32 = float(np.float32(damping))
 
+    @structure_independent
     def init(g: Graph):
         vals = np.full(g.n, 1.0 / g.n, dtype=np.float32)
         aux = np.maximum(g.out_deg, 1).astype(np.float32)
         return vals, aux
 
+    @elementwise
     def edge_map(src_val, src_aux, w):
         del w
         return src_val / src_aux
 
+    @elementwise(shapes=((8,), (8,), "static"))
     def apply(old, agg, n_total):
         del old
         # one rounding, as the reference's fused multiply-add
         c32 = float(np.float32((1.0 - damping) / n_total))
         return (d32 * agg.double() + c32).float()
 
+    @elementwise
     def sd_delta(old, new):  # Eq. 3
         return torch.abs(new - old)
 
+    @elementwise
     def aux_fn(out_deg, in_deg):
         del in_deg
         return np.maximum(out_deg, 1).astype(np.float32)
 
+    @elementwise
     def aux_delta(values, aux_old, aux_new):
         return np.abs(np.asarray(values, np.float64)) * np.abs(
             1.0 / np.asarray(aux_old, np.float64)
@@ -169,19 +184,23 @@ def pagerank(damping: float = 0.85) -> VertexProgram:
 
 
 def sssp(source: int = 0) -> VertexProgram:
+    @structure_independent
     def init(g: Graph):
         vals = np.full(g.n, INF, dtype=np.float32)
         vals[source] = 0.0
         return vals, np.zeros(g.n, dtype=np.float32)
 
+    @elementwise
     def edge_map(src_val, src_aux, w):
         del src_aux
         return src_val + w
 
+    @elementwise(shapes=((8,), (8,), "static"))
     def apply(old, agg, n_total):
         del n_total
         return torch.minimum(old, agg)
 
+    @elementwise
     def sd_delta(old, new):  # Eq. 4: min of the two results, on change
         return _zero_if(new < old, torch.minimum(new, old))
 
@@ -201,19 +220,23 @@ def sssp(source: int = 0) -> VertexProgram:
 
 
 def bfs(source: int = 0) -> VertexProgram:
+    @structure_independent
     def init(g: Graph):
         vals = np.full(g.n, INF, dtype=np.float32)
         vals[source] = 0.0
         return vals, np.zeros(g.n, dtype=np.float32)
 
+    @elementwise
     def edge_map(src_val, src_aux, w):
         del src_aux, w
         return src_val + 1.0
 
+    @elementwise(shapes=((8,), (8,), "static"))
     def apply(old, agg, n_total):
         del n_total
         return torch.minimum(old, agg)
 
+    @elementwise
     def sd_delta(old, new):
         return _zero_if(new < old, torch.ones_like(new))
 
@@ -236,17 +259,21 @@ def cc() -> VertexProgram:
     """Connected components via max-label propagation (paper: 'take a
     maximum'); requires the symmetrized graph."""
 
+    @structure_independent
     def init(g: Graph):
         return np.arange(g.n, dtype=np.float32), np.zeros(g.n, np.float32)
 
+    @elementwise
     def edge_map(src_val, src_aux, w):
         del src_aux, w
         return src_val
 
+    @elementwise(shapes=((8,), (8,), "static"))
     def apply(old, agg, n_total):
         del n_total
         return torch.maximum(old, agg)
 
+    @elementwise
     def sd_delta(old, new):  # the larger of the two results, on change
         return _zero_if(new > old, torch.maximum(new, old))
 
@@ -343,48 +370,59 @@ def _source_lane_values(n: int, sources: list) -> np.ndarray:
     return vals
 
 
-def _min_apply(old, agg, vconst, n_total):
-    del vconst, n_total
-    return torch.minimum(old, agg)
-
-
 def k_source_sssp() -> LaneProgram:
     """L independent single-source shortest-path queries per sweep."""
 
+    @structure_independent
     def lane_init(n, sources):
         return _source_lane_values(n, sources), None
 
+    @elementwise(shapes=((8, 4), (8,), (8,)))
     def edge_map(src_vals, src_aux, w):
         del src_aux
         return src_vals + w[:, None]
 
+    @elementwise(shapes=((8, 4), (8, 4), (8, 4), "static"))
+    def apply(old, agg, vconst, n_total):
+        del vconst, n_total
+        return torch.minimum(old, agg)
+
+    @elementwise(shapes=((8, 4), (8, 4)))
     def sd_delta(old, new):  # Eq. 4 per lane
         return _zero_if(new < old, torch.minimum(new, old))
 
     return LaneProgram(name="k_sssp", combine="min", needs_symmetric=False,
                        monotone_cooling=False, uses_vconst=False,
                        kernel_id=SSSP, lane_init=lane_init,
-                       edge_map=edge_map, apply=_min_apply,
+                       edge_map=edge_map, apply=apply,
                        sd_delta=sd_delta)
 
 
 def k_source_bfs() -> LaneProgram:
     """L independent BFS (unit-weight distance) queries per sweep."""
 
+    @structure_independent
     def lane_init(n, sources):
         return _source_lane_values(n, sources), None
 
+    @elementwise(shapes=((8, 4), (8,), (8,)))
     def edge_map(src_vals, src_aux, w):
         del src_aux, w
         return src_vals + 1.0
 
+    @elementwise(shapes=((8, 4), (8, 4), (8, 4), "static"))
+    def apply(old, agg, vconst, n_total):
+        del vconst, n_total
+        return torch.minimum(old, agg)
+
+    @elementwise(shapes=((8, 4), (8, 4)))
     def sd_delta(old, new):
         return _zero_if(new < old, torch.ones_like(new))
 
     return LaneProgram(name="k_bfs", combine="min", needs_symmetric=False,
                        monotone_cooling=False, uses_vconst=False,
                        kernel_id=BFS, lane_init=lane_init,
-                       edge_map=edge_map, apply=_min_apply,
+                       edge_map=edge_map, apply=apply,
                        sd_delta=sd_delta)
 
 
@@ -404,6 +442,7 @@ def k_personalized_pagerank(damping: float = 0.85) -> LaneProgram:
     d32 = float(np.float32(damping))
     omd = float(np.float32(1.0 - damping))
 
+    @structure_independent
     def lane_init(n, resets):
         r = np.zeros((n, len(resets)), dtype=np.float32)
         for lane, rs in enumerate(resets):
@@ -424,17 +463,21 @@ def k_personalized_pagerank(damping: float = 0.85) -> LaneProgram:
         # already in place
         return r.copy(), r
 
+    @elementwise(shapes=((8, 4), (8,), (8,)))
     def edge_map(src_vals, src_aux, w):
         del w
         return src_vals / src_aux[:, None]
 
+    @elementwise(shapes=((8, 4), (8, 4), (8, 4), "static"))
     def apply(old, agg, vconst, n_total):
         del old, n_total
         return (omd * vconst.double() + (d32 * agg).double()).float()
 
+    @elementwise(shapes=((8, 4), (8, 4)))
     def sd_delta(old, new):  # Eq. 3 per lane
         return torch.abs(new - old)
 
+    @elementwise
     def aux_fn(out_deg, in_deg):
         del in_deg
         return np.maximum(out_deg, 1).astype(np.float32)

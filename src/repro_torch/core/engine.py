@@ -28,8 +28,12 @@ turns every superstep after convergence (or after an empty schedule) into a
 no-op, so the trajectory is the reference's early exit. The iteration
 count, per-block schedule counts, hot-slot counts and the sub-block
 accounting live on the device and are read once per boundary, where the
-host repartitions (Alg. 2 is O(P) numpy bookkeeping). ``run(fused=False)``
-is the host-driven reference loop (one sync per iteration).
+host repartitions (Alg. 2 is O(P) numpy bookkeeping). The chunk is a
+function of its own, :meth:`StructureAwareEngine._get_chunk`, built once per
+dispatch width (and trace capacity) as the reference compiles one chunk per
+bucket; it makes no host sync (``chip_smoke.py`` phase 3c runs it under
+``torch.cuda.set_sync_debug_mode("error")``). ``run(fused=False)`` is the
+host-driven reference loop (one sync per iteration).
 
 The reference's buffer donation becomes in-place updates here: the sweeps
 write new block values, PSD and max-delta rows into the live tensors.
@@ -85,6 +89,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import one_executable_per
 from repro_torch.core import state as state_lib
 from repro_torch.core.algorithms import LaneProgram, VertexProgram
 from repro_torch.core.graph import Graph, symmetrize
@@ -302,6 +307,15 @@ TIMELINE_INT_COLS = COUNTER_FIELDS + ("hot_loads", "retired", "unseen")
 TIMELINE_FLOAT_COLS = ("psd_sum", "psd_max")
 
 
+def _hist_cap(span: int) -> int:
+    """Power-of-two history-buffer capacity covering a traced chunk span
+    (the reference's): spans follow the repartition cadence, which grows
+    1.5x per boundary, so keying the traced chunk on the raw span would
+    build one per boundary. The capacity changes no row, only the buffers'
+    length."""
+    return max(16, 1 << max(span - 1, 1).bit_length())
+
+
 def timeline_row(superstep: int, width: int, ints, floats) -> dict:
     """One timeline row from its integer and float columns."""
     row = {"superstep": superstep, "width": width}
@@ -466,10 +480,11 @@ def make_block_processor(program: VertexProgram, store: EdgeStorage,
             delta = torch.where(lanes < live(base), delta, 0.0)
         # the live count as a device scalar, made once per value: a true
         # division (torch divides by a host scalar through its reciprocal),
-        # and no host-to-device copy, which would stall the queue per slot
+        # filled on the device: a tensor made from a host value would be a
+        # blocking copy that waits for the stream
         k = max(live(base), 1)
         if k not in counts:
-            counts[k] = torch.tensor(float(k), device=dev)
+            counts[k] = torch.full((), float(k), device=dev)
         # (mean, max) per-block deltas: mean is the paper's PSD; max feeds
         # the sound staleness bound
         return kb.pairwise_sum(delta) / counts[k], delta.max()
@@ -523,11 +538,9 @@ def _f32(x: float) -> float:
 class StructureAwareEngine:
     """Paper pipeline: build plan -> iterate (schedule, process, repartition)."""
 
-    # the reference's fixed-size commit chunks (entries per scatter); its
-    # byte accounting bills whole chunks
-    _ROW_CHUNK = 16  # tile rows
-    _AUX_CHUNK = 256  # aux entries
-    _COUPLING_CHUNK = 16  # coupling rows
+    # the reference's fixed-size commit chunks (entries per scatter) by
+    # scatter type; its byte accounting bills whole chunks
+    _COMMIT_CHUNKS = {"edge_rows": 16, "aux": 256, "coupling": 16}
 
     def __init__(self, graph: Graph, program: VertexProgram,
                  config: EngineConfig = EngineConfig(), device="cuda",
@@ -587,7 +600,9 @@ class StructureAwareEngine:
         self._coupling = np.array(coupling, dtype=np.float32)
         self._coupling_dev = torch.tensor(self._coupling, device=device)
         self._setup_sweeps(aux)
-        self._sweep_fns: dict = {}
+        # the cached getters' objects: the sweeps and chunk of each width
+        # (and trace capacity), the row commit of each scatter type
+        self._fns: dict = {}
         self._ladder = (width_ladder(config.width, config.min_width)
                         if config.adaptive else [config.width])
         # pad block for dispatch slots beyond the take counts (never ok)
@@ -666,14 +681,16 @@ class StructureAwareEngine:
     def _acct_table(self) -> np.ndarray:
         return acct_table(self.plan, self.edge_counts)
 
-    # -- sweeps --------------------------------------------------------------
+    # -- sweeps and the device-resident chunk --------------------------------
+    @one_executable_per("width")
     def _sweeps(self, width: int):
         """(hot_sweep, cold_sweep) over a (width,) slate, both in place on
-        (values, psd, dmax). Hot slots run one after another, slot i with
-        its rank's inner depth, so slot i+1 sees slot i's writes; the cold
-        slate is one launch reading one snapshot."""
-        if width in self._sweep_fns:
-            return self._sweep_fns[width]
+        (values, psd, dmax), built once per width. Hot slots run one after
+        another, slot i with its rank's inner depth, so slot i+1 sees slot
+        i's writes; the cold slate is one launch reading one snapshot."""
+        key = ("sweeps", width)
+        if key in self._fns:
+            return self._fns[key]
         depths = self._inner_depths(width).tolist()
         process_one, process_iterated = self._proc
 
@@ -685,8 +702,87 @@ class StructureAwareEngine:
         def cold_sweep(ed, values, psd, dmax, rows, ok):
             process_one(ed, values, psd, dmax, rows, ok)
 
-        self._sweep_fns[width] = (hot_sweep, cold_sweep)
+        self._fns[key] = (hot_sweep, cold_sweep)
         return hot_sweep, cold_sweep
+
+    @one_executable_per("width", "trace_cap")
+    def _get_chunk(self, width: int, trace_cap: int | None = None):
+        """The device-resident chunk of one dispatch width, built once per
+        ``(width, trace_cap)``: ``chunk(ed, coupling, values, psd, dmax,
+        calm, counts, hslots, sbacc, it_dev, is_hot, it0, it_end, i2)``
+        enqueues supersteps ``it0 .. it_end - 1`` (select, the hot and cold
+        sweeps, the staleness post, the convergence test) on device state
+        and reads nothing back. A device ``done`` flag turns the supersteps
+        after convergence or after an empty schedule into no-ops, so the
+        trajectory is the reference's early exit; ``it_dev`` counts the
+        supersteps that ran.
+
+        ``values``, ``counts`` (P,) int32, ``hslots`` (width,) int32,
+        ``sbacc`` and ``it_dev`` (0-d int64) are updated in place; the new
+        ``(psd, dmax, calm)`` come back. ``it0``/``it_end``/``i2`` are host
+        ints: the host knows each superstep's index, so the I2 cadence costs
+        no device work.
+
+        With a ``trace_cap`` (a :func:`_hist_cap` bucket) the chunk takes
+        ``acct_dev, hist_i, hist_f`` after ``i2`` and writes superstep k's
+        timeline row at ``hist_i[k - it0]``/``hist_f[k - it0]`` (buffers of
+        ``trace_cap`` rows); the carry math is untouched, so a traced chunk
+        is bitwise its untraced twin. This function is the unit a CUDA
+        graph would capture (ROADMAP Queue 1 item 3)."""
+        key = ("chunk", width, trace_cap)
+        if key in self._fns:
+            return self._fns[key]
+        cfg = self.config
+        t2 = cfg.t2
+        floor = _f32(self._psd_floor())
+        select = make_device_select(
+            width=width, cold_frac=cfg.cold_frac,
+            min_psd=self._psd_floor(), pad_id=self.pad_id)
+        hot_sweep, cold_sweep = self._sweeps(width)
+        post, timeline = self._post, self._timeline_row
+        traced = trace_cap is not None
+
+        def chunk(ed, coupling, values, psd, dmax, calm, counts, hslots,
+                  sbacc, it_dev, is_hot, it0, it_end, i2, *hist):
+            if traced:
+                acct_dev, hist_i, hist_f = hist
+                if not 0 <= it_end - it0 <= trace_cap:
+                    raise ValueError(f"a traced chunk spans at most "
+                                     f"{trace_cap} supersteps, not "
+                                     f"{it_end - it0}")
+            done = torch.zeros((), dtype=torch.bool, device=psd.device)
+            for k in range(it0, it_end):
+                # while not done, the device iteration count is k
+                hot_rows, hot_ok, cold_rows, cold_ok = select(k, i2, psd,
+                                                              is_hot)
+                running = ~done
+                hot_ok = hot_ok & running
+                cold_ok = cold_ok & running
+                live = (psd >= floor).sum(dim=-1)
+                sbacc += (live[hot_rows.long()] * hot_ok).sum() \
+                    + (live[cold_rows.long()] * cold_ok).sum()
+                hot_sweep(ed, values, psd, dmax, hot_rows, hot_ok)
+                cold_sweep(ed, values, psd, dmax, cold_rows, cold_ok)
+                counts.index_add_(0, hot_rows.long(), hot_ok.to(torch.int32))
+                counts.index_add_(0, cold_rows.long(),
+                                  cold_ok.to(torch.int32))
+                hslots += hot_ok.to(torch.int32)
+                # staleness propagation + calm/retire counter advance
+                psd2, dmax2, calm2 = post(coupling, psd, dmax, calm)
+                psd = torch.where(done, psd, psd2)
+                dmax = torch.where(done, dmax, dmax2)
+                calm = torch.where(done, calm, calm2)
+                if traced:
+                    timeline(acct_dev, hot_rows, hot_ok, cold_rows, cold_ok,
+                             psd, calm, hist_i[k - it0], hist_f[k - it0])
+                scheduled = hot_ok.any() | cold_ok.any()
+                it_dev += scheduled.to(torch.int64)
+                done = done | state_lib.converged_device(psd, t2) \
+                    | ~scheduled
+            return psd, dmax, calm
+
+        self._fns[key] = chunk
+        return chunk
 
     def _account(self, metrics: Metrics, ids: np.ndarray):
         p = self.plan
@@ -720,16 +816,29 @@ class StructureAwareEngine:
             ed = self.spill.materialize(ed)
         return ed
 
-    def _copy_rows(self, targets, idx: np.ndarray, payloads,
-                   chunk: int) -> int:
-        """Copy ``payloads`` into ``targets`` at the (unique) ``idx``, in
-        place. Returns the entry count the reference bills: its fixed-size
-        chunks of ``chunk`` entries, whole."""
-        i = torch.as_tensor(idx).to(self.device)
-        for t, p in zip(targets, payloads):
-            t.index_copy_(0, i, torch.as_tensor(
-                np.ascontiguousarray(p)).to(self.device))
-        return -(-idx.size // chunk) * chunk
+    @one_executable_per("scatter-type")
+    def _row_commit(self, key: str):
+        """The commit of one scatter type (``"edge_rows"``, ``"aux"``,
+        ``"coupling"``), built once per type: ``commit(targets, idx,
+        payloads)`` copies the host ``payloads`` into ``targets`` at the
+        (unique) rows ``idx``, in place, and returns the entry count the
+        reference bills: its fixed-size chunks of the type's size, whole."""
+        fkey = ("commit", key)
+        if fkey in self._fns:
+            return self._fns[fkey]
+        chunk, dev = self._COMMIT_CHUNKS[key], self.device
+
+        def commit(targets, idx: np.ndarray, payloads) -> int:
+            # the commit IS the host->device upload, made between runs (the
+            # reference's _chunked_scatter uploads each chunk's rows there)
+            i = torch.as_tensor(idx).to(dev)  # lint: allow(RA001)
+            for t, p in zip(targets, payloads):
+                host = np.ascontiguousarray(p)
+                t.index_copy_(0, i, torch.as_tensor(host).to(dev))  # lint: allow(RA001)
+            return -(-idx.size // chunk) * chunk
+
+        self._fns[fkey] = commit
+        return commit
 
     def fill_edge_rows(self, ed: EdgeData, rows: np.ndarray, *, src,
                        dst_local, w, valid) -> int:
@@ -737,14 +846,13 @@ class StructureAwareEngine:
         recompute their coverage, and refresh the run table of the blocks
         that own them. ``rows`` are unified-tile row indices; the payloads
         the matching (len(rows), TILE) slices. Returns the billed entry
-        count of :meth:`_copy_rows`."""
+        count of :meth:`_row_commit`."""
         c = self.plan.block_size
         cov = tile_coverage(dst_local, valid, self.config.subblocks, c)
-        pk = self._copy_rows(
+        pk = self._row_commit("edge_rows")(
             (ed.src, ed.dstl, ed.w, ed.valid, ed.cov), rows,
             [np.asarray(src, np.int32), np.asarray(dst_local, np.int32),
-             np.asarray(w, np.float32), np.asarray(valid, bool), cov],
-            self._ROW_CHUNK)
+             np.asarray(w, np.float32), np.asarray(valid, bool), cov])
         kb.refresh_fold_metadata(ed, c, np.unique(self._row_block[rows]))
         return pk
 
@@ -785,7 +893,7 @@ class StructureAwareEngine:
         vals = np.asarray(vals, dtype=np.float32)
         if idx.size == 0:
             return 0
-        pk = self._copy_rows((self._ed.aux,), idx, [vals], self._AUX_CHUNK)
+        pk = self._row_commit("aux")((self._ed.aux,), idx, [vals])
         self.aux[idx] = vals
         return pk * 8
 
@@ -799,8 +907,8 @@ class StructureAwareEngine:
         if rows.size == 0:
             return 0
         self._coupling[rows] = row_vals
-        pk = self._copy_rows((self._coupling_dev,), rows, [row_vals],
-                             self._COUPLING_CHUNK)
+        pk = self._row_commit("coupling")((self._coupling_dev,), rows,
+                                          [row_vals])
         return pk * (int(self._coupling[0].size) * 4 + 4)
 
     @property
@@ -930,7 +1038,6 @@ class StructureAwareEngine:
         values, psd, psd_sub_host, rep, calm_host, i2 = \
             self._start_state(warm)
         t2 = cfg.t2
-        floor = _f32(self._psd_floor())
         calm = torch.as_tensor(calm_host).to(dev)
         psd_host = state_lib.fold_subblock_psd(psd_sub_host)
         active = self._active_count(calm_host)
@@ -978,60 +1085,31 @@ class StructureAwareEngine:
                 # boundary read, which waits for the chunk's device work
                 with obs_trace.span("chunk", cat="engine", it0=it,
                                     width=wb) as csp:
-                    select = make_device_select(
-                        width=wb, cold_frac=cfg.cold_frac,
-                        min_psd=self._psd_floor(), pad_id=self.pad_id)
-                    hot_sweep, cold_sweep = self._sweeps(wb)
+                    cap = _hist_cap(it_end - it) if trace else None
+                    chunk = self._get_chunk(wb, cap)
                     is_hot = torch.as_tensor(rep.is_hot).to(dev)
                     # chunk-local device counters, read at the boundary
                     it_dev = torch.tensor(it, dtype=torch.int64, device=dev)
-                    done = torch.zeros((), dtype=torch.bool, device=dev)
                     counts = torch.zeros(p.num_blocks, dtype=torch.int32,
                                          device=dev)
                     hslots = torch.zeros(wb, dtype=torch.int32, device=dev)
                     sbacc = torch.zeros((), dtype=torch.int64, device=dev)
+                    hist = ()
                     if trace:
                         # row k - it is superstep k: the first it_new - it
                         # rows are the supersteps that ran (a superstep
                         # that finds nothing to schedule sets done and is
                         # not counted)
-                        hist_i = torch.zeros(
-                            (it_end - it, len(TIMELINE_INT_COLS)),
-                            dtype=torch.int64, device=dev)
+                        hist_i = torch.zeros((cap, len(TIMELINE_INT_COLS)),
+                                             dtype=torch.int64, device=dev)
                         hist_f = torch.zeros(
-                            (it_end - it, len(TIMELINE_FLOAT_COLS)),
+                            (cap, len(TIMELINE_FLOAT_COLS)),
                             dtype=torch.float32, device=dev)
-                    for k in range(it, it_end):
-                        # while not done, the device iteration count is k
-                        hot_rows, hot_ok, cold_rows, cold_ok = select(
-                            k, i2, psd, is_hot)
-                        running = ~done
-                        hot_ok = hot_ok & running
-                        cold_ok = cold_ok & running
-                        live = (psd >= floor).sum(dim=-1)
-                        sbacc += (live[hot_rows.long()] * hot_ok).sum() \
-                            + (live[cold_rows.long()] * cold_ok).sum()
-                        hot_sweep(ed, values, psd, dmax, hot_rows, hot_ok)
-                        cold_sweep(ed, values, psd, dmax, cold_rows, cold_ok)
-                        counts.index_add_(0, hot_rows.long(),
-                                          hot_ok.to(torch.int32))
-                        counts.index_add_(0, cold_rows.long(),
-                                          cold_ok.to(torch.int32))
-                        hslots += hot_ok.to(torch.int32)
-                        # staleness propagation + calm/retire counter advance
-                        psd2, dmax2, calm2 = self._post(coupling, psd, dmax,
-                                                        calm)
-                        psd = torch.where(done, psd, psd2)
-                        dmax = torch.where(done, dmax, dmax2)
-                        calm = torch.where(done, calm, calm2)
-                        if trace:
-                            self._timeline_row(acct_dev, hot_rows, hot_ok,
-                                               cold_rows, cold_ok, psd, calm,
-                                               hist_i[k - it], hist_f[k - it])
-                        scheduled = hot_ok.any() | cold_ok.any()
-                        it_dev += scheduled.to(torch.int64)
-                        done = done | state_lib.converged_device(psd, t2) \
-                            | ~scheduled
+                        hist = (acct_dev, hist_i, hist_f)
+                    psd, dmax, calm = chunk(ed, coupling, values, psd, dmax,
+                                            calm, counts, hslots, sbacc,
+                                            it_dev, is_hot, it, it_end, i2,
+                                            *hist)
                     # the chunk's single host read
                     it_new = int(it_dev)
                     psd_sub_host = psd.cpu().numpy()

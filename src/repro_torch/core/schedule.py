@@ -11,8 +11,10 @@ Two implementations of the same policy:
   * :meth:`Scheduler.select` — numpy, host-driven loop (reference);
   * :func:`make_device_select` — torch, run on the device inside the
     device-resident superstep so scheduling never leaves the card. The two
-    return the same blocks, same order, same tie-breaking
-    (tests/test_torch_select.py holds both against the JAX select).
+    return the same blocks, same order, same tie-breaking: the device
+    select carries ``@decision_identical(twin=Scheduler.select)``
+    (:mod:`repro_torch.analysis.contracts`), and tests/test_torch_select.py
+    holds both against the JAX select.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import decision_identical
 from repro_torch.core import state
 
 
@@ -66,6 +69,7 @@ class Scheduler:
         return Selection(hot_ids=hot_pick, cold_ids=cold_pick)
 
 
+@decision_identical(twin=Scheduler.select)
 def make_device_select(width: int, cold_frac: float,
                        min_psd: float, pad_id: int = 0):
     """torch port of :meth:`Scheduler.select` for the device-resident loop.
@@ -80,8 +84,8 @@ def make_device_select(width: int, cold_frac: float,
     ``iteration`` and ``i2`` are host ints: within a chunk the superstep
     index is known to the host (a superstep after the device ``done`` flag
     is set is a no-op whatever it selects), so the I2 cadence costs no
-    device work. ``psd`` and ``is_hot`` are device tensors and nothing is
-    read back.
+    device work. ``psd`` and ``is_hot`` are device tensors; nothing is read back
+    and nothing is copied from the host (no host sync).
 
     ``pad_id`` fills slots beyond the take counts. Those slots are never
     marked ok, and the sweep kernel skips them.
@@ -100,14 +104,16 @@ def make_device_select(width: int, cold_frac: float,
         cold_live = ~is_hot & live
         n_hot = hot_live.sum()
         n_cold = cold_live.sum()
-        inf = torch.tensor(float("inf"), device=dev)
         # Dead slots sink to +inf: a stable ascending argsort of the negated
         # key yields (psd desc, id asc) — identical to np.flatnonzero order
-        # followed by a stable sort on -psd.
-        hot_order = torch.argsort(torch.where(hot_live, -psd, inf),
+        # followed by a stable sort on -psd. The +inf goes in as a Python
+        # scalar, a kernel argument: a CUDA tensor made from a host value
+        # (torch.tensor(inf, device=...)) is a blocking copy that waits
+        # for the stream, once per superstep.
+        hot_order = torch.argsort(torch.where(hot_live, -psd, float("inf")),
                                   stable=True)
-        cold_order = torch.argsort(torch.where(cold_live, -psd, inf),
-                                   stable=True)
+        cold_order = torch.argsort(
+            torch.where(cold_live, -psd, float("inf")), stable=True)
         is_i2 = i2 > 0 and iteration % max(i2, 1) == 0
         m = width - n_cold_quota if is_i2 else width
         n = n_cold_quota if is_i2 else 0

@@ -16,6 +16,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from repro_torch.analysis.contracts import one_executable_per
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -62,8 +64,11 @@ def build(name: str) -> Path:
     return lib
 
 
+@one_executable_per("source hash")
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    """The loaded library of ``csrc/<name>.cu``, built at first use and
+    loaded once a process (the library's name carries its source's
+    hash)."""
     if name not in _LOADED:
         _LOADED[name] = ctypes.CDLL(str(build(name)))
     return _LOADED[name]

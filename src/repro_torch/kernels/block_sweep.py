@@ -59,6 +59,7 @@ import weakref
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import one_executable_per
 from repro_torch.kernels import _build
 
 TILE = 512  # csrc/block_sweep.cu: edge slots per tile row (partition.TILE)
@@ -171,12 +172,15 @@ def _same_tiles(scratch: LaneScratch, ed) -> bool:
     return all(r() is t for r, t in zip(scratch.tiles, _tile_fields(ed)))
 
 
+@one_executable_per("tile geometry", "lanes")
 def make_lane_scratch(ed, block_size: int, lanes: int,
                       reuse: LaneScratch | None = None) -> LaneScratch:
     """Scratch for lane sweeps over ``ed``'s tiles at ``lanes`` lanes.
     ``reuse`` comes back as it is when it was made for the same tile
-    tensors and lane count; otherwise its buffers are reused where their
-    sizes fit and the new tiles are checked."""
+    tensors and lane count (the lane engine keeps one per tile geometry:
+    the port's counterpart of the reference's memoized sweep factory);
+    otherwise its buffers are reused where their sizes fit and the new
+    tiles are checked."""
     if reuse is not None and reuse.lanes == lanes and _same_tiles(reuse, ed):
         return reuse
     if not 1 <= lanes <= MAX_LANES:

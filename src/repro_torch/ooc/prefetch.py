@@ -18,17 +18,19 @@ prediction and the PSD/calm activity state into residency decisions:
     victim regardless.
 
 Every ranking is deterministic (stable orders, id tie-breaks), so a run
-under a budget makes the same residency decisions every time. The
-reference marks each helper ``@deterministic`` (its contracts module, which
-the port has not yet; ROADMAP Queue 1 item 8 adds the mark back).
+under a budget makes the same residency decisions every time: every helper
+carries ``@deterministic`` (:mod:`repro_torch.analysis.contracts`), which
+puts this module under the lint's nondeterminism rule (RA004).
 """
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.analysis.contracts import deterministic
 from repro_torch.core.schedule import Selection
 
 
+@deterministic
 def demand_blocks(sel: Selection, pad_id: int) -> np.ndarray:
     """Unique block ids the next superstep reads: every scheduled hot/cold
     slot plus ``pad_id`` (the slots beyond the take counts carry it)."""
@@ -37,6 +39,7 @@ def demand_blocks(sel: Selection, pad_id: int) -> np.ndarray:
          np.array([pad_id], dtype=np.int64)]))
 
 
+@deterministic
 def fold_calm(calm: np.ndarray | None) -> np.ndarray | None:
     """(P, S) sub-block calm counters -> block calm: a block is only as
     retired as its least calm sub-block (the engine's ``_active_count``)."""
@@ -46,6 +49,7 @@ def fold_calm(calm: np.ndarray | None) -> np.ndarray | None:
     return calm.min(axis=-1) if calm.ndim == 2 else calm
 
 
+@deterministic
 def rank_fetch_candidates(psd_blk: np.ndarray, resident: np.ndarray,
                           floor: float) -> np.ndarray:
     """Non-resident blocks worth prefetching, hottest first. Blocks under
@@ -55,6 +59,7 @@ def rank_fetch_candidates(psd_blk: np.ndarray, resident: np.ndarray,
     return cand[np.argsort(-psd_blk[cand], kind="stable")]
 
 
+@deterministic
 def rank_victims(psd_blk: np.ndarray, calm_blk: np.ndarray | None,
                  resident: np.ndarray, protect: np.ndarray,
                  retire_after: int, retired_only: bool) -> np.ndarray:

@@ -21,9 +21,10 @@ lane frontiers:
     shared by the lanes (the lane-folded sub priority over the floor).
 
 Every sweep goes through the lane sweep kernel (``kernels.block_sweep``:
-kernel 1l at S = 1, kernel 1lm at S > 1). The chunk loop is the engine's:
-the host enqueues the supersteps up to the next repartition boundary
-without reading anything back; the lane PSD, calm counters, ``lane_done``,
+kernel 1l at S = 1, kernel 1lm at S > 1). The chunk loop is the engine's,
+a cached function per width (:meth:`LaneEngine._get_chunk`): the host
+enqueues the supersteps up to the next repartition boundary without
+reading anything back; the lane PSD, calm counters, ``lane_done``,
 ``lane_it`` and a ``done`` flag live on the device and turn the supersteps
 after convergence into no-ops; the host reads them once per boundary.
 
@@ -38,6 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import one_executable_per
 from repro_torch.core import state as state_lib
 from repro_torch.core.algorithms import LaneProgram
 from repro_torch.core.engine import (EdgeData, StructureAwareEngine, _f32,
@@ -74,11 +76,17 @@ class LaneEngine:
                                          p.graph.n, cfg.subblocks,
                                          _f32(engine._psd_floor()))
         self._scratch: kb.LaneScratch | None = None
+        # the sweeps and the chunk of each dispatch width
+        self._fns: dict = {}
 
     # -- device pieces (mirrors of the engine's, with a lane axis) -----------
+    @one_executable_per("width")
     def _sweeps(self, width: int):
         """(hot_sweep, cold_sweep) over a (width,) slate, in place on
-        (values, psd, dmax), as the engine's."""
+        (values, psd, dmax), built once per width, as the engine's."""
+        key = ("sweeps", width)
+        if key in self._fns:
+            return self._fns[key]
         depths = inner_depths(self.engine.config, width).tolist()
         process_one, process_iterated = self._proc
 
@@ -94,7 +102,75 @@ class LaneEngine:
             process_one(ed, values, vconst, psd, dmax, rows, ok, lane_done,
                         scratch)
 
+        self._fns[key] = (hot_sweep, cold_sweep)
         return hot_sweep, cold_sweep
+
+    @one_executable_per("width")
+    def _get_chunk(self, width: int):
+        """The lane chunk of one dispatch width, built once per width:
+        ``chunk(ed, coupling, vconst, values, psd, dmax, calm, counts,
+        hslots, sbacc, lane_done, lane_it, it_dev, is_hot, it0, it_end, i2,
+        scratch)`` enqueues supersteps ``it0 .. it_end - 1`` on device
+        state and reads nothing back, as the engine's ``_get_chunk``: a
+        device ``done`` flag (every lane converged, or an empty schedule)
+        turns the rest of the chunk into no-ops. ``values``, ``counts``,
+        ``hslots``, ``sbacc`` and ``it_dev`` are updated in place; the new
+        ``(psd, dmax, calm, lane_done, lane_it)`` come back."""
+        key = ("chunk", width)
+        if key in self._fns:
+            return self._fns[key]
+        eng = self.engine
+        cfg = eng.config
+        t2 = cfg.t2
+        floor = _f32(eng._psd_floor())
+        select = make_device_select(
+            width=width, cold_frac=cfg.cold_frac, min_psd=eng._psd_floor(),
+            pad_id=eng.pad_id)
+        hot_sweep, cold_sweep = self._sweeps(width)
+        post = self._post
+
+        def chunk(ed, coupling, vconst, values, psd, dmax, calm, counts,
+                  hslots, sbacc, lane_done, lane_it, it_dev, is_hot, it0,
+                  it_end, i2, scratch):
+            done = torch.zeros((), dtype=torch.bool, device=psd.device)
+            for k in range(it0, it_end):
+                # while not done, the device iteration count is k
+                sub_psd = state_lib.lane_sub_psd_device(psd, lane_done)
+                hot_rows, hot_ok, cold_rows, cold_ok = select(
+                    k, i2, sub_psd, is_hot)
+                running = ~done
+                hot_ok = hot_ok & running
+                cold_ok = cold_ok & running
+                # sub-block dispatch accounting from the pre-superstep
+                # priorities: the masks the sweeps apply
+                live = (sub_psd >= floor).sum(dim=-1)
+                sbacc += (live[hot_rows.long()] * hot_ok).sum() \
+                    + (live[cold_rows.long()] * cold_ok).sum()
+                hot_sweep(ed, vconst, values, psd, dmax, hot_rows, hot_ok,
+                          lane_done, scratch)
+                cold_sweep(ed, vconst, values, psd, dmax, cold_rows, cold_ok,
+                           lane_done, scratch)
+                counts.index_add_(0, hot_rows.long(), hot_ok.to(torch.int32))
+                counts.index_add_(0, cold_rows.long(),
+                                  cold_ok.to(torch.int32))
+                hslots += hot_ok.to(torch.int32)
+                psd2, dmax2, calm2 = post(coupling, psd, dmax, calm,
+                                          lane_done)
+                psd = torch.where(done, psd, psd2)
+                dmax = torch.where(done, dmax, dmax2)
+                calm = torch.where(done, calm, calm2)
+                scheduled = hot_ok.any() | cold_ok.any()
+                it_dev += scheduled.to(torch.int64)
+                lane_conv = state_lib.lane_converged_device(psd, t2) \
+                    & running
+                lane_it = torch.where(lane_conv & ~lane_done, it_dev,
+                                      lane_it)
+                lane_done = lane_done | lane_conv
+                done = done | lane_done.all() | ~scheduled
+            return psd, dmax, calm, lane_done, lane_it
+
+        self._fns[key] = chunk
+        return chunk
 
     def _post(self, coupling, psd, dmax, calm, lane_done):
         """Per-lane staleness propagation and the SHARED calm counters: a
@@ -140,6 +216,30 @@ class LaneEngine:
             torch.from_numpy(vconst[dead]), p.graph.n).numpy()
         return values0
 
+    def _start_state(self, values0: np.ndarray, vconst: np.ndarray | None,
+                     lane_active: np.ndarray):
+        """A batch's state at its first boundary, on the host: the values
+        and ``vconst`` (values_len, L), permuted, dead-initialised and
+        padded; the (P, S, L) lane PSD, the (L,) lane_done flags (padding
+        lanes start done), the (P, S) calm counters, and the repartition
+        state. ``run`` puts them on the device; so does a caller that drives
+        :meth:`_get_chunk` alone."""
+        p, cfg = self.engine.plan, self.engine.config
+        vals = np.asarray(values0, dtype=np.float32)[p.order]
+        vc = (np.asarray(vconst, dtype=np.float32)[p.order]
+              if vconst is not None else np.zeros_like(vals))
+        vals = self._init_dead(vals, vc)
+        mode = "barrier" if self.program.monotone_cooling else "universal"
+        rep = RepartitionState.create(
+            p.num_blocks, p.barrier_block, mode,
+            interval=cfg.repartition_interval,
+            growth=cfg.repartition_growth)
+        return (self._pad_lane_values(vals), self._pad_lane_values(vc),
+                state_lib.init_lane_psd(p.num_blocks, lane_active,
+                                        cfg.subblocks),
+                ~lane_active,
+                np.zeros((p.num_blocks, cfg.subblocks), dtype=np.int32), rep)
+
     def prewarm(self, n_lanes: int) -> list[int]:
         """The reference compiles the lane chunk per width bucket here; the
         kernel takes any slate and lane count up to ``MAX_LANES``, so there
@@ -168,31 +268,17 @@ class LaneEngine:
         lane_active = np.asarray(lane_active, dtype=bool)
         nl = values0.shape[1]
         n_adm = int(lane_active.sum())
-        sb = cfg.subblocks
-        floor = _f32(eng._psd_floor())
-        t2 = cfg.t2
 
-        vals = np.asarray(values0, dtype=np.float32)[p.order]
-        vc = (np.asarray(vconst, dtype=np.float32)[p.order]
-              if vconst is not None else np.zeros_like(vals))
-        vals = self._init_dead(vals, vc)
-        values = torch.tensor(self._pad_lane_values(vals), device=dev)
-        vconst_dev = torch.tensor(self._pad_lane_values(vc), device=dev)
+        vals, vc, psd_host, lane_done_host, calm_host, rep = \
+            self._start_state(values0, vconst, lane_active)
+        values = torch.tensor(vals, device=dev)
+        vconst_dev = torch.tensor(vc, device=dev)
         scratch = self._scratch = kb.make_lane_scratch(
             ed, p.block_size, nl, reuse=self._scratch)
-
-        psd_host = state_lib.init_lane_psd(p.num_blocks, lane_active, sb)
         psd = torch.tensor(psd_host, device=dev)  # (P, S, L)
-        lane_done_host = ~lane_active
         lane_done = torch.tensor(lane_done_host, device=dev)
         lane_it = torch.zeros(nl, dtype=torch.int64, device=dev)
         folded = state_lib.fold_lane_psd(psd_host, lane_done_host)
-        mode = "barrier" if self.program.monotone_cooling else "universal"
-        rep = RepartitionState.create(
-            p.num_blocks, p.barrier_block, mode,
-            interval=cfg.repartition_interval,
-            growth=cfg.repartition_growth)
-        calm_host = np.zeros((p.num_blocks, sb), dtype=np.int32)
         calm = torch.tensor(calm_host, device=dev)
         dmax = torch.zeros_like(psd)
         active = eng._active_count(calm_host)
@@ -215,52 +301,17 @@ class LaneEngine:
             while it < max_it and n_adm:
                 wb = dispatch_width(cfg, eng._ladder, active, folded)
                 it_end = rep.chunk_end(max_it)
-                select = make_device_select(
-                    width=wb, cold_frac=cfg.cold_frac,
-                    min_psd=eng._psd_floor(), pad_id=eng.pad_id)
-                hot_sweep, cold_sweep = self._sweeps(wb)
+                chunk = self._get_chunk(wb)
                 is_hot = torch.as_tensor(rep.is_hot).to(dev)
                 it_dev = torch.tensor(it, dtype=torch.int64, device=dev)
-                done = torch.zeros((), dtype=torch.bool, device=dev)
                 counts = torch.zeros(p.num_blocks, dtype=torch.int32,
                                      device=dev)
                 hslots = torch.zeros(wb, dtype=torch.int32, device=dev)
                 sbacc = torch.zeros((), dtype=torch.int64, device=dev)
-                for k in range(it, it_end):
-                    # while not done, the device iteration count is k
-                    sub_psd = state_lib.lane_sub_psd_device(psd, lane_done)
-                    hot_rows, hot_ok, cold_rows, cold_ok = select(
-                        k, cfg.i2, sub_psd, is_hot)
-                    running = ~done
-                    hot_ok = hot_ok & running
-                    cold_ok = cold_ok & running
-                    # sub-block dispatch accounting from the pre-superstep
-                    # priorities: the masks the sweeps apply
-                    live = (sub_psd >= floor).sum(dim=-1)
-                    sbacc += (live[hot_rows.long()] * hot_ok).sum() \
-                        + (live[cold_rows.long()] * cold_ok).sum()
-                    hot_sweep(ed, vconst_dev, values, psd, dmax, hot_rows,
-                              hot_ok, lane_done, scratch)
-                    cold_sweep(ed, vconst_dev, values, psd, dmax, cold_rows,
-                               cold_ok, lane_done, scratch)
-                    counts.index_add_(0, hot_rows.long(),
-                                      hot_ok.to(torch.int32))
-                    counts.index_add_(0, cold_rows.long(),
-                                      cold_ok.to(torch.int32))
-                    hslots += hot_ok.to(torch.int32)
-                    psd2, dmax2, calm2 = self._post(coupling_dev, psd, dmax,
-                                                    calm, lane_done)
-                    psd = torch.where(done, psd, psd2)
-                    dmax = torch.where(done, dmax, dmax2)
-                    calm = torch.where(done, calm, calm2)
-                    scheduled = hot_ok.any() | cold_ok.any()
-                    it_dev += scheduled.to(torch.int64)
-                    lane_conv = state_lib.lane_converged_device(psd, t2) \
-                        & running
-                    lane_it = torch.where(lane_conv & ~lane_done, it_dev,
-                                          lane_it)
-                    lane_done = lane_done | lane_conv
-                    done = done | lane_done.all() | ~scheduled
+                psd, dmax, calm, lane_done, lane_it = chunk(
+                    ed, coupling_dev, vconst_dev, values, psd, dmax, calm,
+                    counts, hslots, sbacc, lane_done, lane_it, it_dev,
+                    is_hot, it, it_end, cfg.i2, scratch)
                 # the chunk's single host read
                 it_new = int(it_dev)
                 psd_host = psd.cpu().numpy()

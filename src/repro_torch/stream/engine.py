@@ -72,8 +72,9 @@ import weakref
 
 import numpy as np
 
+from repro_torch.analysis.contracts import decision_identical
 from repro_torch.core import state as state_lib
-from repro_torch.core.algorithms import VertexProgram
+from repro_torch.core.algorithms import VertexProgram, graph_successors
 from repro_torch.core.engine import (EdgeData, EngineConfig, RunResult,
                                      StructureAwareEngine, WarmStart,
                                      coupling_from_counts, resolve_device)
@@ -795,6 +796,7 @@ class StreamingEngine:
         g = self.current_graph()
         return symmetrize(g) if self.program.needs_symmetric else g
 
+    @decision_identical(twin=graph_successors)
     def _successors(self, frontier: np.ndarray) -> tuple[np.ndarray,
                                                          np.ndarray,
                                                          np.ndarray]:
@@ -803,7 +805,8 @@ class StreamingEngine:
         replaces the per-delete-batch ``from_edges`` CSR rebuild. Must
         return the same (src, dst, w) multiset as
         :func:`repro_torch.core.algorithms.graph_successors` over the built
-        graph."""
+        graph (its ``@decision_identical`` twin;
+        tests/test_torch_analysis.py holds the two against each other)."""
         plan = self.engine.plan
         ps, pd, w = self.store.successors(plan.inv[frontier])
         return plan.order[ps], plan.order[pd], w

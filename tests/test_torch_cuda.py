@@ -70,6 +70,79 @@ def test_run_on_card_matches_cpu(card, prog):
     assert np.array_equal(base.values, base_cpu.values)
 
 
+def _guarded(getter):
+    """A ``_get_chunk`` whose chunks run under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync inside one
+    raises, the boundaries around it are as they were."""
+    def get(self, *key):
+        chunk = getter(self, *key)
+
+        def guarded(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return chunk(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return guarded
+    return get
+
+
+def _run_key(res):
+    m = res.metrics
+    return (m.iterations, m.converged, m.updates, m.block_loads,
+            m.bytes_loaded, res.host_syncs)
+
+
+@pytest.mark.parametrize("trace", [False, True], ids=["plain", "traced"])
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("prog", ["pagerank", "sssp"])
+def test_chunks_make_no_host_sync(card, monkeypatch, prog, s, trace):
+    """Every chunk of a whole run (the engine's _get_chunk) enqueues its
+    supersteps without a host sync, and the run equals the unguarded one
+    bitwise, timeline rows included."""
+    from repro_torch.serve.lanes import LaneEngine
+    g, program = _graph(prog), A.REGISTRY[prog]()
+    cfg = EngineConfig(block_size=128, width=8, t2=1e-9, subblocks=s)
+    want = StructureAwareEngine(g, program, cfg).run(trace=trace)
+    eng = StructureAwareEngine(g, program, cfg)
+    monkeypatch.setattr(StructureAwareEngine, "_get_chunk",
+                        _guarded(StructureAwareEngine._get_chunk))
+    got = eng.run(trace=trace)
+    assert np.array_equal(got.values, want.values)
+    assert _run_key(got) == _run_key(want)
+    assert got.timeline == want.timeline
+    if prog == "sssp":  # and the lane engine's chunks, L = 8
+        fam = A.k_source_sssp()
+        values0, _ = fam.lane_init(g.n, list(range(0, 4000, 500)))
+        kw = dict(ed=eng.edge_state, coupling=eng._coupling,
+                  values0=values0, vconst=None,
+                  lane_active=np.ones(8, bool), edge_counts=eng.edge_counts)
+        want = LaneEngine(eng, fam).run(**kw)
+        monkeypatch.setattr(LaneEngine, "_get_chunk",
+                            _guarded(LaneEngine._get_chunk))
+        got = LaneEngine(eng, fam).run(**kw)
+        assert np.array_equal(got.values, want.values)
+        assert np.array_equal(got.lane_iterations, want.lane_iterations)
+        assert _run_key(got) == _run_key(want)
+
+
+def test_analysis_cli_on_the_card(card):
+    """python -m repro_torch.analysis --check on the card: the lint, the
+    contracts enforced on cuda (kernels 1 and 1l through the tiny
+    engines), the golden file skipped (recorded on the CPU)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--check"],
+        capture_output=True, text=True, cwd=root, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "0 finding(s) [lint+trace (44 contracts)]" in out.stdout
+
+
 def _slate_vs_plain(program, n_total, ed, c, n_live, values, rows, ok, psd0,
                     floor=None, depth=1):
     """One slate through the kernel on the card and through the plain

@@ -58,6 +58,45 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_contracts_and_lint_load_neither_torch_nor_jax():
+    """The engine modules import the contract decorators at definition
+    time, and the lint must run where torch is broken: both stay
+    stdlib-only."""
+    code = ("import sys\n"
+            "import repro_torch.analysis.contracts\n"
+            "import repro_torch.analysis.lint\n"
+            "print(sorted(m for m in ('torch', 'numpy', 'jax', 'repro')\n"
+            "             if m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("args,torch_loaded", [
+    (["--no-trace"], False), (["--check", "--device", "cpu"], True)],
+    ids=["no-trace", "check-cpu"])
+def test_analysis_cli_loads_no_jax(args, torch_loaded):
+    code = ("import runpy, sys\n"
+            f"sys.argv = ['repro_torch.analysis', *{args!r}]\n"
+            "try:\n"
+            "    runpy.run_module('repro_torch.analysis', "
+            "run_name='__main__', alter_sys=True)\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "print('RESULT', rc, 'jax' in sys.modules, "
+            "'repro' in sys.modules, 'torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"}, timeout=300)
+    assert out.returncode == 0, out.stderr
+    line = [x for x in out.stdout.splitlines() if x.startswith("RESULT")]
+    assert line == [f"RESULT 0 False False {torch_loaded}"], out.stdout
+
+
 def test_kernel_tile_is_the_layout_tile():
     from repro_torch.core.partition import TILE
     from repro_torch.kernels.block_sweep import TILE as KERNEL_TILE
