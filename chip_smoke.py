@@ -7,6 +7,7 @@
     python3 chip_smoke.py --ssd-profile  # kernel 5 at the two models' shapes
     python3 chip_smoke.py --ooc-phase  # phase 3o alone
     python3 chip_smoke.py --contracts-phase  # phase 3c alone
+    python3 chip_smoke.py --train-phase  # phase 9 alone
 
 Phases (any failed check exits non-zero; nothing is caught and passed over):
 
@@ -336,6 +337,42 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       prompt; kernel 4 once per decoder layer (the encoder and the
       cross-attention take the plain routes, as the reference's); checked
       as 8b.
+9. LM training (``--train-phase``: this phase alone), after phase 8, its
+   draws from its own seed (TRAIN_SEED). The training path runs none of
+   the eight kernels (the reference never differentiates through a Pallas
+   kernel): their counts are set to 0 before it and must read 0 after.
+   a. llama3p2_1b at its published width and depth (16 layers, d = 2048,
+      1,237,387,264 parameters; every wo redrawn as in phase 8), f32
+      masters, bf16 activations, remat_policy "full", B = 4 x S = 2048
+      from the port's SyntheticLM, AdamW at launch/train.py's defaults:
+      TRAIN_STEPS steps (repro_torch.train.step.make_train_step), every
+      loss and grad norm finite; it prints the step time (median and
+      spread after the first), tokens per second, peak memory and 6 N
+      tokens / step time against the card's dense bf16 peak, beside the
+      card's name and power limit. Before them, on copies of the same
+      masters and batch, one step with f32 activations: the bf16 step's
+      loss within 1% and grad norm within 5% of it (PERF.md §6).
+   b. micro=2 against (a)'s first step (micro=1) on a copy of the same
+      masters and batch: ce within rtol 1e-4, grad norm within 1e-3.
+   c. llama3p2_1b at its published width, depth cut to TRAIN_REMAT_LAYERS
+      (the 16-layer model does not fit under "none"): one forward and
+      backward under each remat policy, the gradients bitwise equal
+      across the four, the peak memory above the step's start printed and
+      ordered none >= save_all_dots >= save_dots >= full; then one train
+      step under each on copies of one state, the new state bitwise equal.
+   d. ``python -m repro_torch.launch.train`` at the example's size
+      (``--reduced --scale 4``) with ``--ckpt-dir`` and ``--fail-at`` in a
+      subprocess: it exits 42; the next run (in this process, main())
+      resumes from its checkpoint, and its losses equal, bitwise, those of
+      an uninterrupted run.
+   e. granite_moe_3b_a800m at its published width, depth cut to
+      TRAIN_MOE_LAYERS: TRAIN_MOE_STEPS steps with the aux losses, then
+      ExpertRebalancer(num_shards=4) fed their expert loads, its
+      permutation applied to the params and to m/v; the next step's loss
+      within 1e-5 of an unpermuted twin's (not bitwise: the combine adds a
+      token's experts in ascending id, which the relabel reorders).
+   f. ``ef_compress_psum`` on an NCCL group of one: the output equals the
+      dequantised input and the residual what quantization lost, bitwise.
 7. One JSON line of kernel rows, the card line, and the final ok line.
 
 It needs the repository's src/ beside it, and a CUDA card: without either it
@@ -435,6 +472,15 @@ MOE_SEED = 60  # phase 8f's (and + 1)
 SHARED_MOE_SEED = 70  # phase 8g's (and + 1)
 VLM_SEED = 80  # phase 8h's (and + 1)
 AUDIO_SEED = 110  # phase 8i's (and + 1)
+TRAIN_ARCH = "llama3p2_1b"  # phase 9a's model, at its published size
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_STEPS = 6
+TRAIN_SEED = 150  # phase 9's own seed
+TRAIN_REMAT_LAYERS = 2  # 9c's depth, cut from 16: "none" keeps every tile
+TRAIN_MOE_LAYERS = 4  # 9e's depth, cut from granite's 32
+TRAIN_MOE_STEPS = 3
+TRAIN_LOSS_BAR, TRAIN_NORM_BAR = 1e-2, 5e-2  # 9a: bf16 against f32
+DENSE_BF16_FLOPS = 989.4e12  # H100 SXM data sheet, dense bf16
 
 
 def fail(msg: str) -> None:
@@ -3714,6 +3760,317 @@ def lm_profile(label, params, cfg, prompt, extras):
                 f"{e.count:5d}x  {e.key[:100]}")
 
 
+def redraw_wo(params, cfg, gen) -> float:
+    """Every self-attention wo redrawn as seeded normals at (Hq * Dh)^-0.5,
+    as phase 8 does: the reference's zero wo hides attention from the loss.
+    Returns the scale."""
+    import torch
+    scale = (cfg.q_heads_eff * cfg.resolved_head_dim) ** -0.5
+    with torch.no_grad():
+        for layer in params.layers:
+            layer.attn.wo.normal_(0.0, scale, generator=gen)
+    return scale
+
+
+def state_copy(state: dict) -> dict:
+    """A copy of a train state on the card (the step updates in place)."""
+    import copy
+    return {"params": copy.deepcopy(state["params"]),
+            "opt": {"m": {k: v.clone() for k, v in state["opt"]["m"].items()},
+                    "v": {k: v.clone() for k, v in state["opt"]["v"].items()},
+                    "step": state["opt"]["step"].clone()}}
+
+
+def train_batch(cfg, seed, step=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    import torch
+    from repro_torch.data import SyntheticLM
+    b = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed).batch(step)
+    return {k: torch.from_numpy(v).to(DEV) for k, v in b.items()}
+
+
+def timed_step(step, state, batch):
+    """(state, metrics, seconds): one train step on the host clock, ending
+    in a device sync."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    return state, metrics, time.perf_counter() - t0
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    import torch
+    pa, pb = dict(a["params"].named_parameters()), dict(
+        b["params"].named_parameters())
+    return (all(torch.equal(pa[k], pb[k]) for k in pa)
+            and all(torch.equal(a["opt"][m][k], b["opt"][m][k])
+                    for m in ("m", "v") for k in a["opt"][m])
+            and torch.equal(a["opt"]["step"], b["opt"]["step"]))
+
+
+def train_phase(t_start) -> dict:
+    """Phase 9: the LM's training path (repro_torch.train, .optim, .data,
+    .launch.train) on the card. Returns its numbers for the log."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.optim import (AdamWConfig, ef_compress_psum,
+                                   int8_decode, int8_encode)
+    from repro_torch.train.expert_balance import (ExpertRebalancer,
+                                                  permute_expert_axis)
+    from repro_torch.train.step import (init_state, loss_fn,
+                                        make_train_step)
+    card = card_line()
+    out = {}
+    FA.flash_attention.launches = 0
+    SSD.ssd_intra_chunk.launches = 0
+    # launch/train.py's defaults at --steps 100
+    opt = AdamWConfig(peak_lr=3e-4, total_steps=100, warmup_steps=20)
+
+    # -- 9a: llama3p2_1b at full width and depth, remat "full" ---------------
+    cfg = configs.get(TRAIN_ARCH)
+    if cfg.remat_policy != "full":
+        fail(f"{cfg.name}: remat_policy {cfg.remat_policy!r}, expected full")
+    gen = torch.Generator(device=DEV).manual_seed(TRAIN_SEED)
+    t0 = time.perf_counter()
+    state = init_state(cfg, gen, opt)
+    scale = redraw_wo(state["params"], cfg, gen)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    if n_params != M.tree_param_count(cfg):
+        fail(f"9a: {n_params} parameters, the reference's tree holds "
+             f"{M.tree_param_count(cfg)}")
+    batch = train_batch(cfg, TRAIN_SEED)
+    torch.cuda.synchronize()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] 9a {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{n_params} parameters (f32 masters; m and v f32), every wo redrawn "
+        f"at scale {scale!r}, remat {cfg.remat_policy}, bf16 activations, "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} from SyntheticLM(seed="
+        f"{TRAIN_SEED}), AdamW {opt}; state and batch made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the yardsticks first, on copies of the same masters and batch
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    twin = state_copy(state)
+    twin, m32, s32 = timed_step(make_train_step(cfg32, opt), twin, batch)
+    del twin
+    twin = state_copy(state)
+    twin, mm2, s2 = timed_step(make_train_step(cfg, opt, num_microbatches=2),
+                               twin, batch)
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] 9a yardsticks: f32 activations loss "
+        f"{float(m32['loss'])!r} grad_norm {float(m32['grad_norm'])!r} "
+        f"({s32:.2f} s); micro=2 ce {float(mm2['ce'])!r} grad_norm "
+        f"{float(mm2['grad_norm'])!r} ({s2:.2f} s)")
+    step = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times, losses, norms = [], [], []
+    metrics0 = None
+    for i in range(TRAIN_STEPS):
+        b = batch if i == 0 else train_batch(cfg, TRAIN_SEED, step=i)
+        state, m, dt = timed_step(step, state, b)
+        metrics0 = metrics0 or m
+        times.append(dt)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(norms))):
+        fail(f"9a: a loss or grad norm is not finite: {losses} {norms}")
+    med = float(np.median(times[1:]))
+    flops = 6 * n_params * tokens
+    log(f"[train] 9a {TRAIN_STEPS} steps: losses {losses}, grad norms "
+        f"{norms}; step s {times} (median after the first {med!r}, spread "
+        f"{min(times[1:])!r}-{max(times[1:])!r}); {tokens / med:.1f} "
+        f"tokens/s; peak memory {peak} B ({peak - base} B above the state's "
+        f"{base} B); 6 N tokens / step time = {flops / med / 1e12:.1f} "
+        f"TFLOP/s, {flops / med / DENSE_BF16_FLOPS:.4f} of the "
+        f"{DENSE_BF16_FLOPS / 1e12:.1f} TFLOP/s dense bf16 peak; {card}")
+    dl = abs(losses[0] - float(m32["loss"])) / float(m32["loss"])
+    dn = abs(norms[0] - float(m32["grad_norm"])) / float(m32["grad_norm"])
+    log(f"[train] 9a the bf16 step against the f32 step: loss {dl!r} "
+        f"(bar {TRAIN_LOSS_BAR}), grad norm {dn!r} (bar {TRAIN_NORM_BAR}) "
+        f"relative")
+    if dl > TRAIN_LOSS_BAR or dn > TRAIN_NORM_BAR:
+        fail("9a: the bf16 step is off the f32 step's bar")
+    # -- 9b: micro=1 against micro=2 -----------------------------------------
+    dce = abs(float(metrics0["ce"]) - float(mm2["ce"]))
+    dgn = abs(float(metrics0["grad_norm"]) - float(mm2["grad_norm"]))
+    log(f"[train] 9b micro=1 against micro=2: ce {float(metrics0['ce'])!r} "
+        f"and {float(mm2['ce'])!r} (rel {dce / float(mm2['ce'])!r}, bar "
+        f"1e-4), grad_norm rel {dgn / float(mm2['grad_norm'])!r} (bar 1e-3)")
+    if dce > 1e-4 * abs(float(mm2["ce"])) or \
+            dgn > 1e-3 * abs(float(mm2["grad_norm"])):
+        fail("9b: micro=2 is off micro=1")
+    out.update(step_s=med, tokens_s=tokens / med, peak=peak,
+               mfu=flops / med / DENSE_BF16_FLOPS)
+    del state, step, batch, metrics0, m32, mm2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9c: the remat policies at full width, depth cut ---------------------
+    log(f"[time] phase 9c starts at {time.perf_counter() - t_start:.1f} s")
+    cfg2 = dataclasses.replace(cfg, num_layers=TRAIN_REMAT_LAYERS)
+    gen = torch.Generator(device=DEV).manual_seed(TRAIN_SEED + 1)
+    state = init_state(cfg2, gen, opt)
+    redraw_wo(state["params"], cfg2, gen)
+    batch = train_batch(cfg2, TRAIN_SEED + 1)
+    params = list(state["params"].parameters())
+    grads, peaks = {}, {}
+    for policy in M.REMAT_POLICIES:
+        cp = dataclasses.replace(cfg2, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        loss, _ = loss_fn(state["params"], cp, batch)
+        grads[policy] = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        peaks[policy] = torch.cuda.max_memory_allocated() - start
+        del loss
+    names = [n for n, _ in state["params"].named_parameters()]
+    for policy, gs in grads.items():
+        diff = [n for n, a, b in zip(names, grads["none"], gs)
+                if not torch.equal(a, b)]
+        if diff:
+            fail(f"9c: the gradients under {policy} differ from none's in "
+                 f"{diff}")
+    del grads
+    log(f"[train] 9c {cfg2.name} at {TRAIN_REMAT_LAYERS} layers (depth cut "
+        f"from {cfg.num_layers}), batch {TRAIN_BATCH} x {TRAIN_SEQ}: the "
+        f"gradients bitwise equal under {list(M.REMAT_POLICIES)}; peak "
+        f"memory above the step's start, B: {peaks}; {card}")
+    p = peaks
+    if not p["none"] >= p["save_all_dots"] >= p["save_dots"] >= p["full"]:
+        fail("9c: the peaks are not ordered none >= save_all_dots >= "
+             "save_dots >= full")
+    first = None
+    for policy in M.REMAT_POLICIES:
+        cp = dataclasses.replace(cfg2, remat_policy=policy)
+        st = make_train_step(cp, opt)(state_copy(state), batch)[0]
+        if first is None:
+            first = st
+        elif not states_equal(first, st):
+            fail(f"9c: a train step under {policy} differs from none's")
+        del st
+    log("[train] 9c one train step under each policy: the new params, m, v "
+        "and step bitwise equal")
+    out["remat_peaks"] = peaks
+    del first, state, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9d: the training launcher, a crash and the resume ------------------
+    log(f"[time] phase 9d starts at {time.perf_counter() - t_start:.1f} s")
+    args = ["--arch", "llama3p2_1b", "--reduced", "--scale", "4",
+            "--steps", "8", "--batch", "16", "--seq", "128",
+            "--log-every", "1", "--seed", str(TRAIN_SEED), "--device", DEV]
+    with tempfile.TemporaryDirectory() as tmp:
+        crash = args + ["--ckpt-dir", os.path.join(tmp, "crash")]
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *crash,
+             "--fail-at", "4"], capture_output=True, text=True, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=300)
+        log(r.stdout.strip())
+        if r.returncode != 42:
+            fail(f"9d: --fail-at exited {r.returncode}, not 42: {r.stderr}")
+        log(f"[train] 9d the crashed run exited 42 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        resumed = launch_train.main(crash)
+        straight = launch_train.main(
+            args + ["--ckpt-dir", os.path.join(tmp, "straight")])
+    if len(straight) != 8 or resumed != straight[4:]:
+        fail(f"9d: the resumed losses {resumed} are not the uninterrupted "
+             f"run's {straight[4:]}")
+    log(f"[train] 9d resumed at step 4: losses {resumed} bitwise the "
+        f"uninterrupted run's")
+
+    # -- 9e: the MoE, its aux losses and the expert rebalancer ---------------
+    log(f"[time] phase 9e starts at {time.perf_counter() - t_start:.1f} s")
+    cfgm = configs.get(MOE_ARCH)
+    cfgm = dataclasses.replace(cfgm, num_layers=TRAIN_MOE_LAYERS)
+    gen = torch.Generator(device=DEV).manual_seed(TRAIN_SEED + 2)
+    state = init_state(cfgm, gen, opt)
+    redraw_wo(state["params"], cfgm, gen)
+    step = make_train_step(cfgm, opt)
+    reb = ExpertRebalancer(num_experts=cfgm.experts_eff, num_shards=4,
+                           interval=1, min_gain=0.0)
+    perm, moe_losses = None, []
+    for i in range(TRAIN_MOE_STEPS):
+        state, m = step(state, train_batch(cfgm, TRAIN_SEED + 2, step=i))
+        moe_losses.append(float(m["loss"]))
+        perm = reb.observe(m["expert_load"].cpu().numpy().astype(np.float64),
+                           i + 1)
+    if perm is None or not np.all(np.isfinite(moe_losses)):
+        fail(f"9e: no rebalance plan, or losses not finite: {moe_losses}")
+    activity = reb.load_ema
+    log(f"[train] 9e {cfgm.name} at {TRAIN_MOE_LAYERS} layers (depth cut "
+        f"from 32), d={cfgm.d_model}, {cfgm.num_experts} experts "
+        f"top-{cfgm.experts_per_token}: losses {moe_losses}; shard "
+        f"imbalance of the load EMA {reb.shard_imbalance(activity)!r} -> "
+        f"{reb.shard_imbalance(activity[np.argsort(perm)])!r} under the "
+        f"rebalancer's plan (num_shards=4), {int(np.sum(perm != np.arange(perm.size)))} "
+        f"experts moved")
+    twin = state_copy(state)
+    permute_expert_axis(state["params"], perm)
+    for mom in ("m", "v"):
+        state["opt"][mom] = permute_expert_axis(state["opt"][mom], perm)
+    b = train_batch(cfgm, TRAIN_SEED + 2, step=TRAIN_MOE_STEPS)
+    state, mp = step(state, b)
+    twin, mt = step(twin, b)
+    lp, lt = float(mp["loss"]), float(mt["loss"])
+    log(f"[train] 9e the next step: loss {lp!r} permuted, {lt!r} unpermuted "
+        f"twin (rel {abs(lp - lt) / abs(lt)!r}, bar 1e-5)")
+    if abs(lp - lt) > 1e-5 * abs(lt):
+        fail("9e: the permuted model's loss is off its twin's")
+    del state, twin, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9f: int8 error-feedback compression on an NCCL group of one ---------
+    rng = np.random.default_rng(TRAIN_SEED + 3)
+    g = {k: torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                            device=DEV) for k, s in
+         (("a", (2048, 2048)), ("b", (8192,)))}
+    r = {k: torch.as_tensor((rng.normal(size=v.shape) * 1e-3).astype(
+        np.float32), device=DEV) for k, v in g.items()}
+    with group_of_one():
+        red, res = ef_compress_psum(g, r)
+    for k in g:
+        q, sc = int8_encode(g[k] + r[k])
+        deq = int8_decode(q, sc)
+        if not (torch.equal(red[k], deq)
+                and torch.equal(res[k], (g[k] + r[k]) - deq)):
+            fail(f"9f: ef_compress_psum's {k} is not its dequantised input")
+    log("[train] 9f ef_compress_psum on an NCCL group of one: outputs "
+        "bitwise the dequantised inputs, residuals what quantization lost")
+    if FA.flash_attention.launches or SSD.ssd_intra_chunk.launches:
+        fail("phase 9: the training path launched kernel 4 or 5")
+    return out
+
+
+def train_alone() -> int:
+    """``--train-phase``: phase 9 alone, in one process (it builds no
+    kernel: the training path runs none). No result line."""
+    import torch
+    t_start = time.perf_counter()
+    log(f"[device] {card_line()}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    train_phase(t_start)
+    log(f"[done] phase 9 in {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3734,6 +4091,8 @@ def main() -> int:
         return ooc_alone()
     if sys.argv[1:2] == ["--contracts-phase"]:
         return contracts_alone()
+    if sys.argv[1:2] == ["--train-phase"]:
+        return train_alone()
     import numpy as np
     from repro_torch.core import algorithms as A
     from repro_torch.core import graph as G
@@ -4092,6 +4451,12 @@ def main() -> int:
     fa_launches, ssd_launches = (
         sum(n[key] for n in lm_launches.values())
         for key in ("flash_attention", "ssd_intra_chunk"))
+
+    # -- phase 9: LM training -------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] phase 9 starts at {time.perf_counter() - t_start:.1f} s")
+    train_phase(t_start)
 
     # -- phase 7: the kernels line, the card, and the result -----------------
     t, tm = times["pagerank"], times[("pagerank", 1.0)]

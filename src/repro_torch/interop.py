@@ -38,7 +38,11 @@ the reference's ``repro.models.model.init_params`` pytree as numpy (the
 per-layer tensors stacked on a leading (L,) axis), unstacks it into the
 port's :class:`repro_torch.models.model.Model`, and gives the module back,
 so both packages run on identical weights (``jax.random`` has no torch
-counterpart).
+counterpart). :func:`train_state_from_arrays` and
+:func:`train_state_to_arrays` carry a whole train state (parameters and
+AdamW's moments and step) across, either way: the port's trainer
+checkpoints through them, so a checkpoint written by either package
+resumes in the other.
 """
 from __future__ import annotations
 
@@ -112,6 +116,43 @@ def engine_from_arrays(program: VertexProgram, config: EngineConfig,
     return eng
 
 
+def _port_named(tree: dict) -> dict:
+    """A reference parameter tree (or a moment tree of the same shape)
+    under the port's parameter names: the stacked (L, ...) leaves of
+    ``layers`` and ``enc_layers`` unstacked per layer."""
+    want = {key: tree[key] for key in ("embed", "ln_f", "lm_head",
+                                       "enc_ln_f") if key in tree}
+    for stack in ("layers", "enc_layers"):
+        for key, leaf in tree.get(stack, {}).items():
+            groups = (leaf.items() if isinstance(leaf, dict)
+                      else [(None, leaf)])
+            for sub, a in groups:
+                name = key if sub is None else f"{key}.{sub}"
+                for i in range(a.shape[0]):
+                    want[f"{stack}.{i}.{name}"] = a[i]
+    return want
+
+
+def _reference_tree(named: dict) -> dict:
+    """The inverse of :func:`_port_named`: numpy leaves under the
+    reference's names, each layer stack's leaves stacked on (L, ...)."""
+    tree: dict = {}
+    stacks: dict = {}
+    for name, a in named.items():
+        parts = name.split(".")
+        if parts[0] in ("layers", "enc_layers"):
+            stacks.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = a
+        else:
+            tree[name] = a
+    for (stack, *path), per_layer in stacks.items():
+        node = tree.setdefault(stack, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([per_layer[i]
+                                   for i in range(len(per_layer))])
+    return tree
+
+
 def lm_params_from_arrays(cfg: ArchConfig, tree: dict, device="cuda"):
     """The port's decoder (:class:`repro_torch.models.model.Model`) holding
     the reference's parameter pytree ``tree`` (numpy leaves, the
@@ -123,26 +164,61 @@ def lm_params_from_arrays(cfg: ArchConfig, tree: dict, device="cuda"):
     from repro_torch.models.model import Model
     model = Model(cfg, device)
     named = dict(model.named_parameters())
-    want = {key: tree[key] for key in ("embed", "ln_f", "lm_head",
-                                       "enc_ln_f") if key in tree}
-    for stack in ("layers", "enc_layers"):
-        for key, leaf in tree.get(stack, {}).items():
-            groups = (leaf.items() if isinstance(leaf, dict)
-                      else [(None, leaf)])
-            for sub, a in groups:
-                name = key if sub is None else f"{key}.{sub}"
-                for i in range(a.shape[0]):
-                    want[f"{stack}.{i}.{name}"] = a[i]
-    if set(want) != set(named):
-        raise KeyError(f"parameters differ: missing "
-                       f"{sorted(set(named) - set(want))}, unexpected "
-                       f"{sorted(set(want) - set(named))}")
+    want = _port_named(tree)
+    _same_names(want, named)
     with torch.no_grad():
         for name, a in want.items():
-            p = named[name]
-            a = np.array(a, dtype=np.float32)
-            if a.shape != tuple(p.shape):
-                raise ValueError(f"{name}: shape {a.shape}, the port's is "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(a))
+            named[name].copy_(_f32_like(name, a, named[name]))
     return model
+
+
+def _same_names(want: dict, have: dict) -> None:
+    if set(want) != set(have):
+        raise KeyError(f"parameters differ: missing "
+                       f"{sorted(set(have) - set(want))}, unexpected "
+                       f"{sorted(set(want) - set(have))}")
+
+
+def _f32_like(name: str, a, like: torch.Tensor) -> torch.Tensor:
+    a = np.array(a, dtype=np.float32)
+    if a.shape != tuple(like.shape):
+        raise ValueError(f"{name}: shape {a.shape}, the port's is "
+                         f"{tuple(like.shape)}")
+    return torch.from_numpy(a)
+
+
+def train_state_from_arrays(cfg: ArchConfig, tree: dict, device="cuda"):
+    """The port's train state (``repro_torch.train.step``) from the
+    reference's ``{"params", "opt": {"m", "v", "step"}}`` with numpy
+    leaves (its ``CheckpointManager.restore()``, or ``jax.device_get`` of
+    a live state): the parameters as :func:`lm_params_from_arrays`, ``m``
+    and ``v`` as f32 tensors keyed by the port's parameter names, ``step``
+    a 0-d int32 tensor, all on ``device``."""
+    model = lm_params_from_arrays(cfg, tree["params"], device)
+    named = dict(model.named_parameters())
+    opt = {}
+    for mom in ("m", "v"):
+        want = _port_named(tree["opt"][mom])
+        _same_names(want, named)
+        opt[mom] = {name: _f32_like(name, a, named[name]).to(
+            named[name].device) for name, a in want.items()}
+    opt["step"] = torch.tensor(int(np.asarray(tree["opt"]["step"])),
+                               dtype=torch.int32, device=model.embed.device)
+    return {"params": model, "opt": opt}
+
+
+def train_state_to_arrays(cfg: ArchConfig, state: dict) -> dict:
+    """The reference's train state from the port's: ``{"params", "opt":
+    {"m", "v", "step"}}`` as numpy (f32 leaves stacked (L, ...) under the
+    reference's names, ``step`` an int32 scalar), which the reference's
+    ``jax.tree.map(jnp.asarray, ...)`` resumes from and either package's
+    ``CheckpointManager`` saves."""
+    def host(named: dict) -> dict:
+        return _reference_tree({k: v.detach().to("cpu", torch.float32)
+                                .numpy() for k, v in named.items()})
+    model = state["params"]
+    return {"params": host(dict(model.named_parameters())),
+            "opt": {"m": host(state["opt"]["m"]),
+                    "v": host(state["opt"]["v"]),
+                    "step": np.asarray(int(state["opt"]["step"]),
+                                       dtype=np.int32)}}

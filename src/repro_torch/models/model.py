@@ -43,12 +43,17 @@ reference's routes hold: ``chunked_attention`` at S >= 2048,
 cross-attention take the plain routes always, as the reference's do. The
 cache's K/V, SSM states, conv windows and cross K/V are updated in place
 and the cache dict is returned; its ``pos`` is a Python int.
-``cast_weights_once`` raises ``NotImplementedError``; the reference's
-sharding hooks are not ported yet (ROADMAP Queue 1 items 9-10), and
-``remat`` has no effect on inference.
+``forward`` is differentiable (the training path, ``repro_torch.train``):
+with ``remat`` each decoder layer, the reference's scan ``body`` with
+whisper's cross K/V, runs under ``cfg.remat_policy`` through
+``torch.utils.checkpoint`` (:func:`remat_wrap`); prefill and decoding run
+without autograd. ``cast_weights_once`` raises ``NotImplementedError``;
+the reference's sharding hooks are not ported yet (ROADMAP Queue 1 item
+10).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -497,16 +502,19 @@ def _logits(params: Model, cfg: ArchConfig, x) -> torch.Tensor:
 
 
 def _layers(params: Model, cfg: ArchConfig, x, use_kernel: bool,
-            cache: dict | None = None, enc_out=None):
+            cache: dict | None = None, enc_out=None, remat: str = "none"):
     """The decoder stack over a full sequence from position 0; with a cache
     it also writes each layer's K/V at [0, S), SSM state and conv window,
-    and cross K/V. ``enc_out``: whisper's encoder output. Returns (x, the
-    MoE layers' aux dicts)."""
+    and cross K/V. ``enc_out``: whisper's encoder output. ``remat``: the
+    activation-checkpoint policy of each layer (:func:`remat_wrap`; a
+    cache takes none). Returns (x, the MoE layers' aux dicts)."""
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
     k_conv = cfg.ssm_conv_width - 1
-    auxes = []
-    for i, layer in enumerate(params.layers):
+
+    def body(x, layer, i):
+        """One decoder layer, whisper's cross K/V included: the
+        reference's scan ``body``, the unit that remat recomputes."""
         h = rms_norm(x, layer.ln1)
         parts = []
         if cfg.has_attention:
@@ -529,12 +537,69 @@ def _layers(params: Model, cfg: ArchConfig, x, use_kernel: bool,
                 cache["cross_k"][i].copy_(kv[0])
                 cache["cross_v"][i].copy_(kv[1])
             x = _cross_block(x, layer, cfg, kv)
+        aux = None
         if cfg.num_experts or cfg.d_ff:
             y, aux = _ffn_block(rms_norm(x, layer.ln2), layer, cfg)
             x = x + y
-            if aux is not None:
-                auxes.append(aux)
+        return x, aux
+
+    block = body if cache is not None else remat_wrap(body, remat)
+    auxes = []
+    for i, layer in enumerate(params.layers):
+        x, aux = block(x, layer, i)
+        if aux is not None:
+            auxes.append(aux)
     return x, auxes
+
+
+REMAT_POLICIES = ("none", "full", "save_dots", "save_all_dots")
+
+
+def _saved_ops(policy: str) -> set:
+    """The ops whose outputs a selective policy keeps: the unbatched
+    products (``save_dots``, the reference's
+    ``dots_with_no_batch_dims_saveable``: the projections' ``mm``, and the
+    down projection's ``mm.dtype`` on the card), and the batched ones too
+    (``save_all_dots``, its ``dots_saveable``: the attention's and the
+    experts' einsums lower to ``bmm``). No product of the model has a bias,
+    so none is an ``addmm``."""
+    aten = torch.ops.aten
+    ops = {aten.mm.default, aten.mm.dtype}
+    if policy == "save_all_dots":
+        ops.add(aten.bmm.default)
+    return ops
+
+
+def remat_wrap(fn, policy: str):
+    """``fn`` under the activation-checkpoint ``policy``, as the
+    reference's ``jax.checkpoint`` of its layer ``body``: ``none`` keeps
+    every activation for the backward; ``full`` keeps only ``fn``'s inputs
+    and recomputes the rest in the backward; ``save_dots`` and
+    ``save_all_dots`` keep the outputs of the products of
+    :func:`_saved_ops` and recompute the rest. Without autograd (no grad
+    mode) every policy is ``fn`` itself. Recomputing is the same ops on
+    the same inputs, so no policy changes a bit of the gradients."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; one of "
+                         f"{REMAT_POLICIES}")
+    if policy == "none":
+        return fn
+    from torch.utils import checkpoint as ckpt
+    kw = {}
+    if policy != "full":
+        saved = _saved_ops(policy)
+
+        def keep(ctx, op, *args, **kwargs):
+            return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                    else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, keep)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def _encoded(params: Model, cfg: ArchConfig, batch):
@@ -547,11 +612,16 @@ def _encoded(params: Model, cfg: ArchConfig, batch):
 # --------------------------------------------------------------------------
 def forward(params: Model, cfg: ArchConfig, batch, use_kernel: bool = False,
             remat: bool = True):
-    """Returns (logits (B, S, V), aux dict). ``remat`` is accepted and has
-    no effect here."""
+    """Returns (logits (B, S, V), aux dict). With ``remat`` each decoder
+    layer runs under ``cfg.remat_policy`` (:func:`remat_wrap`: ``full``,
+    ``save_dots``, ``save_all_dots`` or ``none``), as the reference's scan
+    body; without it, or under no grad mode, every activation is kept. The
+    policy trades memory for recompute in the backward and changes no
+    value."""
     _require_ported(cfg)
     x, auxes = _layers(params, cfg, _embed_inputs(params, cfg, batch),
-                       use_kernel, enc_out=_encoded(params, cfg, batch))
+                       use_kernel, enc_out=_encoded(params, cfg, batch),
+                       remat=cfg.remat_policy if remat else "none")
     logits = _logits(params, cfg, x)
     if auxes:  # the MoE layers': means of the losses, the summed loads
         aux = {"lb_loss": torch.stack([a["lb_loss"] for a in auxes]).mean(),

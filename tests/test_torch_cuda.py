@@ -910,3 +910,76 @@ def test_flash_attention_at_hymba_heads(card):
         want = FA.flash_attention_ref(q, k, v)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_matmul_f32_backward_on_card(card, dtype):
+    """``layers.matmul_f32``'s card route (``aten::mm.dtype``, which
+    autograd has no formula for) differentiates as the reference's
+    transpose: each of da = ct @ b^T and db = a^T @ ct is the f32 product
+    of the same half-width values rounded once. Held against those products
+    in f64 on the CPU, rounded once: within one ulp of the half-width type,
+    a relative 2^-7 (bf16) or 2^-10 (fp16) at most (the tensor cores' f32
+    accumulation rounds apart from f64's; 3 of 40,960 elements of bf16's
+    da were one ulp off on the H100)."""
+    from repro_torch.models.layers import matmul_f32
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    a = torch.randn(4, 96, 256, generator=gen, device="cuda").to(dt)
+    b = torch.randn(256, 160, generator=gen, device="cuda").to(dt)
+    a.requires_grad_()
+    b.requires_grad_()
+    out = matmul_f32(a, b)
+    ct = torch.randn(out.shape, generator=gen, device="cuda").to(dt)
+    da, db = torch.autograd.grad(out, [a, b], ct)
+    assert out.dtype == da.dtype == db.dtype == dt
+    a64, b64, c64 = (t.detach().cpu().double() for t in (a, b, ct))
+    want_out = (a64 @ b64).to(dt)
+    want_da = (c64 @ b64.T).to(dt)
+    want_db = (a64.reshape(-1, 256).T @ c64.reshape(-1, 160)).to(dt)
+    rtol = 2 ** -7 if dtype == "bfloat16" else 2 ** -10
+    for got, want in ((out, want_out), (da, want_da), (db, want_db)):
+        torch.testing.assert_close(got.detach().cpu().float(), want.float(),
+                                   rtol=rtol, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_on_card_matches_cpu(card, dtype):
+    """One train step of reduced llama3p2_1b (remat "full") on the card
+    against the same step on the CPU from the same masters and batch: loss
+    and grad norm at rtol 1e-5 and the parameters at rtol 1e-5, atol 1e-4
+    (a tenth of the lr) in f32; the reference's 5e-2 in bf16."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.reduced(configs.get("llama3p2_1b")),
+                              dtype=dtype)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    b = SyntheticLM(cfg.vocab_size, 64, 4, seed=1).batch(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = init_state(cfg, torch.Generator().manual_seed(5))
+        state["params"].to(dev)
+        state["opt"] = {k: ({n: t.to(dev) for n, t in v.items()}
+                            if isinstance(v, dict) else v.to(dev))
+                        for k, v in state["opt"].items()}
+        with torch.no_grad():
+            for layer in state["params"].layers:
+                layer.attn.wo.copy_(torch.randn(
+                    layer.attn.wo.shape, generator=torch.Generator()
+                    .manual_seed(6)).to(dev) * 0.1)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        state, m = make_train_step(cfg, opt)(state, batch)
+        out[dev] = ({n: p.detach().cpu() for n, p in
+                     state["params"].named_parameters()},
+                    {k: float(v) for k, v in m.items()})
+    (pc, mc), (pg, mg) = out["cpu"], out["cuda"]
+    tol = (dict(rtol=1e-5, atol=1e-4) if dtype == "float32"
+           else dict(rtol=5e-2, atol=5e-2))
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(mg[k], mc[k], rtol=tol["rtol"])
+    for n in pc:
+        torch.testing.assert_close(pg[n], pc[n], **tol, msg=n)
