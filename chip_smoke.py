@@ -8,6 +8,7 @@
     python3 chip_smoke.py --ooc-phase  # phase 3o alone
     python3 chip_smoke.py --contracts-phase  # phase 3c alone
     python3 chip_smoke.py --train-phase  # phase 9 alone
+    python3 chip_smoke.py --mesh-phase  # phase 10 alone
 
 Phases (any failed check exits non-zero; nothing is caught and passed over):
 
@@ -73,8 +74,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    SSSP fixpoints must be bitwise equal, PageRank must agree at rtol=1e-4,
    atol=2e-3/n, and the sweep kernel must have launched on the main path.
    Then each SA engine runs WINDOW supersteps from the start WINDOWS times
-   by the host clock and WINDOWS times under torch.profiler: wall and
-   device busy time per superstep (median and spread), sweep calls per
+   by the host clock and PROFILED_WINDOWS times under torch.profiler: wall
+   and device busy time per superstep (median and spread), sweep calls per
    superstep, and the device time by kernel.
 3t. The traced main path, on phase 3's engines, its launches counted apart
    from phase 3's: the PageRank SA run again, whole, with trace=True under
@@ -223,13 +224,14 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       host enqueue time of its calls, the wrappers' own Python, and the
       device time by kernel (torch.profiler; for the hub row too).
    b. Runs through DistributedEngine.run() on an NCCL process group of one
-      rank on cuda:0 (FileStore): PageRank on phase 3's graph (width 128,
-      T2_PAGERANK), within rtol=1e-4, atol=2e-3/n of phase 3's baseline;
-      SSSP on weighted powerlaw_graph(2^20) and CC on powerlaw_graph(2^18)
-      (cut from 2^21 for the time limit), bitwise equal to BaselineEngine
-      on the same graph. Before its run, the SSSP (CC) engine's storage
-      goes through 6a's check for min (max) on its hub row and seeded
-      rows. Each run prints supersteps, wall seconds, host syncs,
+      rank on cuda:0 (FileStore): PageRank on core_periphery_graph(2^20,
+      seed=1, chords=1) (width 128, t2 scaled to its 1/n as T2_PAGERANK
+      is), within rtol=1e-4, atol=2e-3/n of BaselineEngine on the same
+      graph; SSSP on weighted powerlaw_graph(2^20) and CC on
+      powerlaw_graph(2^18), bitwise equal to BaselineEngine on the same
+      graph (each cut from phase 3's 2^21 for the time limit). Before its
+      run, each engine's storage goes through 6a's check for its combine
+      on its hub row and seeded rows. Each run prints supersteps, wall seconds, host syncs,
       combine-kernel launches, counters and the padded storage bytes on
       the card; each run's combine kernel must have launched.
 8. LM serving, after phase 6 (whose engines and caches are freed first).
@@ -293,20 +295,20 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       per f32 product, the Gram once per head group), and the plain
       version at mamba2's shape. No single
       PyTorch call computes the function, so there is no library time.
-   d. mamba2_2p7b at its published width and depth (64 layers, d = 2560,
-      80 SSM heads of 64, N = 128, 2,704,590,336 parameters), served and
+   d. mamba2_2p7b at its published width (d = 2560, 80 SSM heads of 64,
+      N = 128) and SERVE_LAYERS of its 64 layers, served and
       checked as 8b, after 8b's model is freed: kernel 5 must launch once
       per layer in the prefill, kernel 4 never. The forward that the
       decode steps are held against takes the largest SSD chunk that
       divides its 2064 tokens (the chunked algorithm is the same function
       at any chunk). The profile prints kernel 5's share of the prefill.
-   e. hymba_1p5b at its published width and depth (32 layers, d = 1600,
-      25/5 attention heads and 25 SSM heads of 64, N = 16, 1,395,924,896
-      parameters; wo redrawn): kernels 4 and 5 in every layer, each
+   e. hymba_1p5b at its published width (d = 1600, 25/5 attention heads
+      and 25 SSM heads of 64, N = 16; wo redrawn) and SERVE_LAYERS of its
+      32 layers: kernels 4 and 5 in every layer, each
       launched once per layer in the prefill; checked and profiled as 8d.
-   f. granite_moe_3b_a800m at its published width and depth (32 layers,
-      d = 1536, 24/8 heads of 64, 40 experts top-8 of width 512,
-      3,380,577,792 parameters; wo redrawn), served as 8b (prompts of 2048
+   f. granite_moe_3b_a800m at its published width (d = 1536, 24/8 heads
+      of 64, 40 experts top-8 of width 512; wo redrawn) and SERVE_LAYERS
+      of its 32 layers, served as 8b (prompts of 2048
       tokens at capacity factor 1.25: 512 rows per expert and group):
       kernel 4 once per layer in the prefill. One prefill and one decode
       step run under torch.cuda.set_sync_debug_mode("error"): the MoE path
@@ -326,8 +328,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    g. deepseek_moe_16b at its published width (16/16 heads of 128, 64
       routed experts top-6 and 2 shared, width 1408) and 4 of its 28
       layers (full depth holds 67.5 GB of f32 masters), checked as 8f.
-   h. phi3_vision_4p2b at its published width and depth (32 layers,
-      d = 3072, 32/32 heads of 96, 3,825,404,928 parameters): 1024 seeded
+   h. phi3_vision_4p2b at its published width (d = 3072, 32/32 heads of
+      96) and SERVE_LAYERS of its 32 layers: 1024 seeded
       patch embeddings ahead of 1024 text tokens (S = 2048), kernel 4 at
       D = 96 once per layer; checked as 8b.
    i. whisper_base at its published width and depth (6 + 6 layers,
@@ -373,6 +375,41 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
       token's experts in ascending id, which the relabel reorders).
    f. ``ef_compress_psum`` on an NCCL group of one: the output equals the
       dequantised input and the residual what quantization lost, bitwise.
+10. The device mesh and the sharding rules (``--mesh-phase``: this phase
+   alone), after phase 9, its draws from its own seed (MESH_SEED; 10a's
+   batches are phase 9a's, TRAIN_SEED). An NCCL group of one and
+   ``make_host_mesh(model=1)``, a (1, 1) mesh: every placement is trivial,
+   so the sharded program (DTensor parameters, moments, batches and
+   caches, launch/sharding.py) must give the unsharded program's bits.
+   The sharded program takes the plain routes (none of the eight kernels):
+   kernels 4 and 5's counts are set to 0 before it and must read 0 after.
+   a. llama3p2_1b at its published width and depth (every wo redrawn),
+      laid out by ``state_specs``, remat "full", 4 x 2048: MESH_STEPS
+      train steps beside an unsharded twin's on copies of the same
+      masters and batches, in this process; every loss and grad norm
+      bitwise the twin's, and the new states bitwise equal. Both step
+      times are printed (the gap is DTensor's host overhead), beside the
+      card's name and power limit.
+   b. The same trained model served: a 4 x 2048 prefill and MESH_DECODE
+      decode steps through ``param_specs``, ``cache_sharding`` and
+      ``logits_spec`` with ``shard_attn`` and ``cast_weights_once`` on,
+      against the twin's plain tensors with both off: logits and tokens
+      bitwise equal; prefill and decode step times of both printed.
+   c. llama3p2_1b at its published width, depth cut to MESH_CKPT_LAYERS
+      (10a's 16-layer state took 25.3 s to save and 32.8 s to restore
+      through the npz files on the H100's host), laid out by
+      ``state_specs``,
+      one step, then saved (gathered, ``interop.train_state_to_arrays``)
+      and restored onto the mesh (``restore(shardings=checkpoint_specs(
+      state_specs(...)))``): bitwise the saved state, and one more step on
+      each bitwise equal (loss, grad norm, new state).
+   d. ``python -m repro_torch.launch.dryrun --arch llama3p2_1b --mesh
+      single --graph`` in a subprocess (the fake group needs a process of
+      its own; fake CUDA tensors, the card's route), started beside the
+      set-up (beside 10a with ``--mesh-phase``) and awaited here (it
+      launches nothing on the card), then the roofline
+      (``launch.roofline.main``, in this process): its rows printed,
+      projections under the H100 data sheet's rates.
 7. One JSON line of kernel rows, the card line, and the final ok line.
 
 It needs the repository's src/ beside it, and a CUDA card: without either it
@@ -382,6 +419,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import subprocess
 import sys
@@ -417,7 +455,7 @@ SERVE_CAP = 20000  # superstep cap of one lane batch
 SOURCES = ("block_sweep", "segment_combine", "flash_attention",
            "ssd_scan")  # csrc/*.cu
 DIST_BLOCK = 4096  # the distributed engine's block (launch/dryrun.py)
-DIST_N = 1 << 20  # phase 6b's SSSP graph
+DIST_N = 1 << 20  # phase 6b's PageRank and SSSP graphs
 DIST_CC_N = 1 << 18  # phase 6b's CC graph (symmetrized: twice the edges)
 DIST_ROWS = 16  # phase 6a's seeded rows per storage group
 SEG_UNSORTED_E = 1 << 20  # phase 6a's synthetic unsorted row
@@ -426,7 +464,8 @@ SEED = 0
 SWEEP_SEED = 90  # phase 2e's own generator: its draws shift no earlier one's
 LANE_SEED = 91  # phase 2d's lane shapes: their own generator, likewise
 WINDOW = 100  # phase 3's windows: supersteps from the start of a run
-WINDOWS = 3  # windows timed, and as many profiled
+WINDOWS = 3  # windows timed
+PROFILED_WINDOWS = 1  # windows profiled (cut from 3 for the time limit)
 TRACE_CAP = 300  # phase 3t: the SSSP run's superstep cap, traced and not
 TRACE_HOST_CAP = 40  # phase 3t: the host loop's cap beside it
 TRACE_SEED = 120  # phase 3t's graphs and query sources: their own seed
@@ -454,16 +493,18 @@ LM_GEN = 17  # the prefill's token, then 16 greedy decode steps
 LM_SEED = 8  # phase 8's own seed: its draws shift no earlier phase's
 LM_TOL = 5e-2  # the reference's bf16 logits bar (tests/test_models.py)
 LM_TOL32 = 1e-4  # the f32 bar of the port's model tests
-SSM_ARCH = "mamba2_2p7b"  # phase 8d's model, at its published size
+SSM_ARCH = "mamba2_2p7b"  # phase 8d's model, at its published width
 HYBRID_ARCH = "hymba_1p5b"  # phase 8e's model, at its published width
 SSD_SEED = 30  # phase 8c's own seed
 SSM_SEED = 40  # phase 8d's (and + 1)
 HYBRID_SEED = 50  # phase 8e's (and + 1)
 # phases 8f-8i: the moe, vlm and audio families
-MOE_ARCH = "granite_moe_3b_a800m"  # phase 8f's model, at its published size
+MOE_ARCH = "granite_moe_3b_a800m"  # phase 8f's, at its published width
 SHARED_MOE_ARCH = "deepseek_moe_16b"  # phase 8g's, at its published width
 SHARED_MOE_LAYERS = 4  # 8g's depth, cut from 28 (67.5 GB of f32 masters)
-VLM_ARCH = "phi3_vision_4p2b"  # phase 8h's, at its published size
+SERVE_LAYERS = 4  # 8d, 8e, 8f and 8h's depth, cut for the time limit when
+# phase 10 came (from 64, 32, 32 and 32: every layer runs the same checks)
+VLM_ARCH = "phi3_vision_4p2b"  # phase 8h's, at its published width
 VLM_TEXT = 1024  # 8h's text tokens, behind its 1024 patch embeddings
 AUDIO_ARCH = "whisper_base"  # phase 8i's, at its published size
 AUDIO_FRAMES = 1500  # 8i's frames: 30 s of audio at 50 encoder positions/s
@@ -474,12 +515,17 @@ VLM_SEED = 80  # phase 8h's (and + 1)
 AUDIO_SEED = 110  # phase 8i's (and + 1)
 TRAIN_ARCH = "llama3p2_1b"  # phase 9a's model, at its published size
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4  # cut from 6 for the time limit when phase 10 came
 TRAIN_SEED = 150  # phase 9's own seed
 TRAIN_REMAT_LAYERS = 2  # 9c's depth, cut from 16: "none" keeps every tile
 TRAIN_MOE_LAYERS = 4  # 9e's depth, cut from granite's 32
 TRAIN_MOE_STEPS = 3
 TRAIN_LOSS_BAR, TRAIN_NORM_BAR = 1e-2, 5e-2  # 9a: bf16 against f32
+MESH_SEED = 160  # phase 10's own seed
+MESH_STEPS = 2  # 10a's steps on each side
+MESH_DECODE = 4  # 10b's decode steps
+MESH_CKPT_LAYERS = 2  # 10c's depth, cut from 16 for the phase's budget
+DRYRUN_TIMEOUT = 300  # 10d: the dry run's subprocess limit, in s
 DENSE_BF16_FLOPS = 989.4e12  # H100 SXM data sheet, dense bf16
 
 
@@ -909,8 +955,8 @@ def sweep_shapes_phase(engines, times, srng, pagerank_full=False):
 
 def superstep_windows(label, eng):
     """Phase 3: WINDOW supersteps from the start of ``eng``'s run, WINDOWS
-    times by the host clock (ending in a synchronize) and WINDOWS times
-    under torch.profiler: wall and device busy time per superstep (median
+    times by the host clock (ending in a synchronize) and PROFILED_WINDOWS
+    times under torch.profiler: wall and device busy time per superstep (median
     and spread), sweep calls per superstep, and the device time by kernel
     of the last profiled window."""
     import torch
@@ -925,7 +971,7 @@ def superstep_windows(label, eng):
         torch.cuda.synchronize()
         steps = res.metrics.iterations
         walls.append((time.perf_counter() - t0) * 1e3 / steps)
-    for _ in range(WINDOWS):
+    for _ in range(PROFILED_WINDOWS):
         zero_counts()
         torch.cuda.synchronize()
         # the card's activity alone: a window is ~30,000 kernels
@@ -948,7 +994,8 @@ def superstep_windows(label, eng):
         return f"median {xs[len(xs) // 2]!r} [{xs[0]!r}, {xs[-1]!r}]"
 
     log(f"[run] {label} window of {steps} supersteps from the start, "
-        f"{WINDOWS} times each: wall ms per superstep {spread(walls)}; "
+        f"{WINDOWS} times timed, {PROFILED_WINDOWS} profiled: wall ms per "
+        f"superstep {spread(walls)}; "
         f"profiled: device busy ms per superstep {spread(busy)}, wall ms "
         f"per superstep {spread(prof_walls)} (inflated by the profiler); "
         f"{calls / steps!r} sweep calls per superstep")
@@ -2675,7 +2722,7 @@ def group_of_one():
             dist.destroy_process_group()
 
 
-def distributed_phase(g, pr_base, rng, t_start):
+def distributed_phase(g, rng, t_start):
     """Phase 6 on a process group of one rank (NCCL on the card) over a
     FileStore: 6a on the PageRank engine's storage, then 6b's runs, each
     engine's storage checked by 6a's check before its run. Returns the
@@ -2719,26 +2766,31 @@ def distributed_phase(g, pr_base, rng, t_start):
         log(f"[kernel] 6a done in {time.perf_counter() - t0:.1f} s")
         log(f"[time] phase 6b starts at "
             f"{time.perf_counter() - t_start:.1f} s")
-        launches["sum"] = dist_run("pagerank distributed", eng, build_s,
-                                   "sum", pr_base, exact=False)
         del eng
-        for op, prog, n in (("min", A.sssp(0), DIST_N),
+        for op, prog, n in (("sum", A.pagerank(), DIST_N),
+                            ("min", A.sssp(0), DIST_N),
                             ("max", A.cc(), DIST_CC_N)):
-            gd = G.powerlaw_graph(n, avg_deg=AVG_DEG, seed=2,
-                                  weighted=True)
-            cfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=T2)
+            if op == "sum":
+                gd = G.core_periphery_graph(n, avg_deg=AVG_DEG, seed=1,
+                                            chords=1)
+                t2, kind = T2 * 20000 / n, "core_periphery_graph"
+            else:
+                gd = G.powerlaw_graph(n, avg_deg=AVG_DEG, seed=2,
+                                      weighted=True)
+                t2, kind = T2, "powerlaw_graph"
+            cfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=t2)
             base = BaselineEngine(gd, prog, cfg, frontier=False,
                                   device=DEV).run(max_iterations=BASE_CAP)
             if not base.metrics.converged:
                 fail(f"{prog.name} baseline on n={gd.n} did not converge")
-            eng, build_s = build(gd, prog, T2)
+            eng, build_s = build(gd, prog, t2)
             label = f"{prog.name} graph (n={gd.n})"
             got = segment_check(label, eng, segment_layouts(eng),
                                 [(op, prog.name)], rng)
             errs[op] = max(errs[op], got[op])
             launches[op] = dist_run(
-                f"{prog.name} distributed on powerlaw_graph(n={gd.n})",
-                eng, build_s, op, base.values, exact=True)
+                f"{prog.name} distributed on {kind}(n={gd.n})", eng,
+                build_s, op, base.values, exact=op != "sum")
             del eng
     log("[check] distributed runs: pagerank within rtol=1e-4, atol=2e-3/n of "
         "the baseline; sssp and cc bitwise equal to the baseline")
@@ -2806,20 +2858,26 @@ def main_path_engines(baseline: bool, names=("pagerank", "sssp")):
         "sssp": lambda: (A.sssp(0), G.powerlaw_graph(
             N, avg_deg=AVG_DEG, seed=2, weighted=True), T2),
     }
-    cases = {name: cases[name]() for name in names}
-    engines = {}
-    for name, (prog, g, t2) in cases.items():
-        cfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=t2)
-        sa = StructureAwareEngine(g, prog, cfg, device=DEV)
-        engines[name] = (sa, BaselineEngine(g, prog, cfg, frontier=False,
-                                            device=DEV) if baseline else None)
-        log(f"[setup] {name}: n={g.n} m={g.m} P={sa.plan.num_blocks} "
-            f"tiles={int(sa.plan.unified.tile_cnt.sum())} hub block tiles="
-            f"{int(sa.plan.unified.tile_cnt.max())} "
-            f"hot-born={sa.barrier_block}")
+    engines, graphs = {}, {}
+    # the graphs made side by side (numpy's bulk work releases the GIL),
+    # each engine built as soon as its graph is there
+    with ThreadPoolExecutor(len(names)) as pool:
+        made = {name: pool.submit(cases[name]) for name in names}
+        for name in names:
+            prog, g, t2 = made[name].result()
+            graphs[name] = g
+            cfg = EngineConfig(block_size=BLOCK, width=WIDTH, t2=t2)
+            sa = StructureAwareEngine(g, prog, cfg, device=DEV)
+            engines[name] = (sa, BaselineEngine(
+                g, prog, cfg, frontier=False, device=DEV)
+                if baseline else None)
+            log(f"[setup] {name}: n={g.n} m={g.m} P={sa.plan.num_blocks} "
+                f"tiles={int(sa.plan.unified.tile_cnt.sum())} hub block "
+                f"tiles={int(sa.plan.unified.tile_cnt.max())} "
+                f"hot-born={sa.barrier_block}")
     log(f"[setup] graphs and engines built in "
         f"{time.perf_counter() - t0:.1f} s")
-    return engines, {name: case[1] for name, case in cases.items()}
+    return engines, graphs
 
 
 def sweep_profile() -> int:
@@ -3538,7 +3596,7 @@ def lm_phase(label, arch, seed, prompt_len=LM_PROMPT, layers=None):
     # logits (ROADMAP fact 5), while in f32 the routes differ by ~1e-5.
     # An MoE's router turns such a difference into another expert where a
     # token's k-th and (k+1)-th probabilities are that close (11 of 262,144
-    # decisions at granite's 32 layers), and in a prefill then moves other
+    # decisions at granite's full 32 layers), and in a prefill moves other
     # tokens' capacity slots. So the plain run is pinned to the served
     # run's routes, its own choices printed beside them, and every row is
     # held at 1e-4.
@@ -4059,6 +4117,290 @@ def train_phase(t_start) -> dict:
     return out
 
 
+def full_state(state: dict) -> dict:
+    """A state's tensors whole (DTensors gathered), for bitwise checks."""
+    from repro_torch.launch.sharding import full
+    return {"params": {k: full(v) for k, v in
+                       state["params"].named_parameters()},
+            "opt": {"m": {k: full(v) for k, v in state["opt"]["m"].items()},
+                    "v": {k: full(v) for k, v in state["opt"]["v"].items()},
+                    "step": full(state["opt"]["step"])}}
+
+
+def same_state(a: dict, b: dict) -> bool:
+    import torch
+    fa, fb = full_state(a), full_state(b)
+    return (all(torch.equal(fa["params"][k], fb["params"][k])
+                for k in fa["params"])
+            and all(torch.equal(fa["opt"][m][k], fb["opt"][m][k])
+                    for m in ("m", "v") for k in fa["opt"][m])
+            and torch.equal(fa["opt"]["step"], fb["opt"]["step"]))
+
+
+def start_dryrun() -> dict:
+    """Phase 10d's dry run, started in the background: ``python -m
+    repro_torch.launch.dryrun --arch TRAIN_ARCH --mesh single --graph`` in
+    a process of its own (its fake group needs one; its cells run on fake
+    CUDA tensors and launch nothing on the card), its output and results
+    in a temporary directory. It is stopped, and the directory removed,
+    when this process exits. Returns what :func:`mesh_phase` reads."""
+    import atexit
+    import os
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="dryrun-")
+    out = open(os.path.join(tmp, "stdout"), "w")
+    err = open(os.path.join(tmp, "stderr"), "w")
+    res = os.path.join(tmp, "dryrun_torch.json")
+    t_wall = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         TRAIN_ARCH, "--mesh", "single", "--graph", "--out", res],
+        stdout=out, stderr=err, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return dict(proc=proc, dir=tmp, res=res, t0=time.perf_counter(),
+                t_wall=t_wall)
+
+
+def mesh_phase(t_start, dry=None) -> dict:
+    """Phase 10: the device mesh, the sharding rules, the sharded train
+    step, serving and checkpoint, and the dry run, on an NCCL group of one.
+    ``dry``: the dry run :func:`start_dryrun` started (else it starts
+    here, beside 10a-10c). Returns its times for the log."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.interop import (checkpoint_specs,
+                                     train_state_from_arrays,
+                                     train_state_to_arrays)
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import batch_axes, make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_state, make_train_step
+    card = card_line()
+    out = {}
+    FA.flash_attention.launches = 0
+    SSD.ssd_intra_chunk.launches = 0
+    opt = AdamWConfig(peak_lr=3e-4, total_steps=100, warmup_steps=20)
+    cfg = configs.get(TRAIN_ARCH)
+    if dry is None:
+        dry = start_dryrun()
+    with group_of_one():
+        mesh = make_host_mesh(model=1, device_type=DEV)
+        # -- 10a: the sharded train step against its unsharded twin ---------
+        gen = torch.Generator(device=DEV).manual_seed(MESH_SEED)
+        state = init_state(cfg, gen, opt)
+        redraw_wo(state["params"], cfg, gen)
+        twin = state_copy(state)
+        sspecs = SH.state_specs(state, mesh)
+        t0 = time.perf_counter()
+        state = SH.distribute_state(state, mesh, sspecs)
+        torch.cuda.synchronize()
+        lay_s = time.perf_counter() - t0
+        bspec = SH.to_placements(("data", None), mesh)
+        step = make_train_step(cfg, opt)
+        metrics, times = {"sharded": [], "twin": []}, {"sharded": [],
+                                                     "twin": []}
+        for i in range(MESH_STEPS):
+            batch = train_batch(cfg, TRAIN_SEED, step=i)
+            twin, m, dt = timed_step(step, twin, batch)
+            metrics["twin"].append((float(m["loss"]),
+                                    float(m["grad_norm"])))
+            times["twin"].append(dt)
+            sbatch = {k: SH.distribute(v, mesh, bspec)
+                      for k, v in batch.items()}
+            state, m, dt = timed_step(step, state, sbatch)
+            metrics["sharded"].append((float(SH.full(m["loss"])),
+                                       float(SH.full(m["grad_norm"]))))
+            times["sharded"].append(dt)
+        log(f"[mesh] 10a {cfg.name} ({cfg.num_layers} layers, d="
+            f"{cfg.d_model}) on a {tuple(mesh.shape)} mesh "
+            f"{mesh.mesh_dim_names} of an NCCL group of one, laid out by "
+            f"state_specs in {lay_s:.2f} s; (loss, grad norm) sharded "
+            f"{metrics['sharded']}, twin {metrics['twin']}; step s sharded "
+            f"{times['sharded']}, unsharded twin {times['twin']}; {card}")
+        if metrics["sharded"] != metrics["twin"]:
+            fail("10a: the sharded steps' losses or grad norms differ from "
+                 "the unsharded twin's")
+        if not same_state(state, twin):
+            fail("10a: the sharded state differs from the twin's")
+        log("[mesh] 10a losses, grad norms and the new states bitwise the "
+            "twin's")
+        out["train_s"] = (times["sharded"][-1], times["twin"][-1])
+
+        # -- 10b: serving through the sharding rules ---------------------------
+        log(f"[time] phase 10b starts at {time.perf_counter() - t_start:.1f} "
+            f"s")
+        scfg = dataclasses.replace(cfg, shard_attn=True,
+                                   cast_weights_once=True)
+        shape = dataclasses.replace(configs.SHAPES["prefill_32k"],
+                                    global_batch=LM_BATCH)
+        M.set_attention_sharding(batch_axes(mesh), "model")
+        prompt = torch.as_tensor(np.random.default_rng(MESH_SEED).integers(
+            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32),
+            device=DEV)
+        bs = SH.batch_specs(scfg, shape, mesh)
+        lspec = SH.logits_spec(scfg, shape, mesh)
+
+        def serve(params, c, sharded):
+            cache = M.init_cache(c, LM_BATCH, LM_PROMPT + MESH_DECODE,
+                                 device=DEV)
+            wrap = (lambda t: SH.distribute(t, mesh, bs["tokens"])) \
+                if sharded else (lambda t: t)
+            if sharded:
+                cache = SH.distribute_tree(
+                    cache, mesh, SH.cache_sharding(c, shape, mesh, cache))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = M.prefill(params, c, {"tokens": wrap(prompt)}, cache)
+            if sharded:
+                lg = lg.redistribute(mesh, lspec)
+            lg = SH.full(lg)
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+            logits, toks, dec = [lg], [], []
+            for _ in range(MESH_DECODE):
+                nxt = lg.argmax(-1).to(torch.int32)[:, None]
+                toks.append(nxt)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = M.decode_step(params, c, wrap(nxt), cache)
+                if sharded:
+                    lg = lg.redistribute(mesh, lspec)
+                lg = SH.full(lg)
+                torch.cuda.synchronize()
+                dec.append(time.perf_counter() - t0)
+                logits.append(lg)
+            return logits, toks, pre_s, dec
+        got = serve(state["params"], scfg, True)
+        want = serve(twin["params"], cfg, False)
+        same = (all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+                and all(torch.equal(a, b) for a, b in zip(got[1], want[1])))
+        log(f"[mesh] 10b prefill {LM_BATCH} x {LM_PROMPT} and {MESH_DECODE} "
+            f"decode steps, shard_attn and cast_weights_once on, logits laid "
+            f"out by logits_spec {lspec}: prefill s sharded {got[2]!r}, "
+            f"plain {want[2]!r}; decode step s sharded {got[3]}, plain "
+            f"{want[3]}; logits and tokens bitwise equal: {same}; {card}")
+        if not same:
+            fail("10b: the sharded serve differs from the plain route")
+        out["prefill_s"] = (got[2], want[2])
+        out["decode_s"] = (float(np.median(got[3])),
+                           float(np.median(want[3])))
+        M.set_attention_sharding((), None)
+        del got, want, twin, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 10c: save and restore onto the mesh -------------------------------
+        log(f"[time] phase 10c starts at {time.perf_counter() - t_start:.1f} "
+            f"s")
+        cfg = dataclasses.replace(cfg, num_layers=MESH_CKPT_LAYERS)
+        step = make_train_step(cfg, opt)
+        gen = torch.Generator(device=DEV).manual_seed(MESH_SEED + 1)
+        state = init_state(cfg, gen, opt)
+        redraw_wo(state["params"], cfg, gen)
+        sspecs = SH.state_specs(state, mesh)
+        state = SH.distribute_state(state, mesh, sspecs)
+        batch = train_batch(cfg, TRAIN_SEED, step=0)
+        state, _ = step(state, {k: SH.distribute(v, mesh, bspec)
+                                for k, v in batch.items()})
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = CheckpointManager(os.path.join(tmp, "ckpt"),
+                                    async_write=False)
+            t0 = time.perf_counter()
+            mgr.save(1, train_state_to_arrays(cfg, state))
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tree, meta = mgr.restore(shardings=checkpoint_specs(sspecs),
+                                     mesh=mesh)
+            restored = train_state_from_arrays(cfg, tree, DEV)
+            del tree
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        if meta["step"] != 1 or not same_state(restored, state):
+            fail("10c: the restored state differs from the saved one")
+        batch = train_batch(cfg, TRAIN_SEED, step=1)
+        sbatch = {k: SH.distribute(v, mesh, bspec) for k, v in batch.items()}
+        state, m1 = step(state, sbatch)
+        restored, m2 = step(restored, sbatch)
+        pair = [(float(SH.full(m["loss"])), float(SH.full(m["grad_norm"])))
+                for m in (m1, m2)]
+        log(f"[mesh] 10c {cfg.name} at {cfg.num_layers} layers, one step: "
+            f"saved in {save_s:.2f} s, restored onto the mesh in "
+            f"{restore_s:.2f} s, bitwise the saved state; the next step "
+            f"(loss, grad norm) uninterrupted {pair[0]}, resumed {pair[1]}")
+        if pair[0] != pair[1] or not same_state(state, restored):
+            fail("10c: the step after the restore differs from the "
+                 "uninterrupted one")
+        del state, restored, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    if FA.flash_attention.launches or SSD.ssd_intra_chunk.launches:
+        fail("phase 10: the sharded program launched kernel 4 or 5")
+
+    # -- 10d: the dry run and the roofline, on a fake group ----------------------
+    log(f"[time] phase 10d starts at {time.perf_counter() - t_start:.1f} s")
+    proc, t0 = dry["proc"], time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(DRYRUN_TIMEOUT - (t0 - dry["t0"]), 1.0))
+    except subprocess.TimeoutExpired:
+        fail(f"10d: the dry run still ran {DRYRUN_TIMEOUT} s after it "
+             f"started")
+    waited = time.perf_counter() - t0
+    text = {name: Path(dry["dir"], name).read_text()
+            for name in ("stdout", "stderr")}
+    log("\n".join(line for line in text["stdout"].splitlines()
+                  if line.startswith("[dryrun]")))
+    if rc:
+        fail(f"10d: the dry run exited {rc}: {text['stderr'][-3000:]}")
+    res = Path(dry["res"])
+    cells = json.loads(res.read_text())
+    for key, cell in sorted(cells.items()):
+        log(f"[dryrun] {key}: " + json.dumps(
+            {k: v for k, v in cell.items() if k != "trace"}))
+    # python -m repro_torch.launch.roofline --in res, in this process
+    from repro_torch.launch import roofline
+    with contextlib.redirect_stdout(io.StringIO()) as table:
+        roofline.main(["--in", str(res)])
+    log(table.getvalue().strip())
+    dry_s = res.stat().st_mtime - dry["t_wall"]
+    log(f"[mesh] 10d the dry run (its cells on fake devices, fake group of "
+        f"512) wrote its results {dry_s:.1f} s after it started, in the "
+        f"background; this phase waited {waited:.1f} s for it")
+    out["dryrun_s"] = dry_s
+    return out
+
+
+def mesh_alone() -> int:
+    """``--mesh-phase``: phase 10 alone, in one process (it builds no
+    kernel: the sharded program runs none). No result line."""
+    import torch
+    t_start = time.perf_counter()
+    log(f"[device] {card_line()}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    mesh_phase(t_start)
+    log(f"[done] phase 10 in {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 def train_alone() -> int:
     """``--train-phase``: phase 9 alone, in one process (it builds no
     kernel: the training path runs none). No result line."""
@@ -4093,6 +4435,8 @@ def main() -> int:
         return contracts_alone()
     if sys.argv[1:2] == ["--train-phase"]:
         return train_alone()
+    if sys.argv[1:2] == ["--mesh-phase"]:
+        return mesh_alone()
     import numpy as np
     from repro_torch.core import algorithms as A
     from repro_torch.core import graph as G
@@ -4108,17 +4452,24 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        libs = list(pool.map(_build.build, SOURCES))
-    build_s = time.perf_counter() - t0
-    for name, lib_path in zip(SOURCES, libs):
-        log(f"[build] {name}.cu -> {lib_path.name} (all built in "
-            f"{build_s:.1f} s)")
-        log(Path(str(lib_path) + ".log").read_text().strip())
 
-    # -- the graphs and engines of the main path -----------------------------
-    engines, graphs = main_path_engines(baseline=True)
+    def build(name):
+        return _build.build(name), time.perf_counter() - t0
+
+    # one nvcc per source, all started together, and phase 10d's dry run
+    # (a process on fake devices), while the main path's graphs and
+    # engines are built here: neither needs a kernel
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        builds = [pool.submit(build, name) for name in SOURCES]
+        dry = start_dryrun()
+        # -- the graphs and engines of the main path -------------------------
+        engines, graphs = main_path_engines(baseline=True)
+        libs = [f.result() for f in builds]
+    build_s = max(s for _, s in libs)
+    for name, (lib_path, _) in zip(SOURCES, libs):
+        log(f"[build] {name}.cu -> {lib_path.name} (all built in "
+            f"{build_s:.1f} s, beside the set-up)")
+        log(Path(str(lib_path) + ".log").read_text().strip())
 
     # -- phase 2: kernels vs plain, and the sweeps' times --------------------
     log(f"[time] phase 2 starts at {time.perf_counter() - t_start:.1f} s")
@@ -4297,7 +4648,6 @@ def main() -> int:
     sa_r = results[("pagerank", "structure-aware")]
     base_r = results[("pagerank", "baseline")]
     agree("pagerank", sa_r.values, base_r.values, exact=False)
-    pr_base = base_r.values  # phase 6b's reference
     for name, (sa, _) in engines.items():
         superstep_windows(f"{name} structure-aware", sa)
     log("[check] sssp fixpoints bitwise equal; pagerank within rtol=1e-4, "
@@ -4412,7 +4762,7 @@ def main() -> int:
     # -- phase 6: the distributed engine at block 4096 ------------------------
     log(f"[time] phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     dist_launches, seg_errs, hub_t, cold_t = distributed_phase(
-        g, pr_base, rng, t_start)
+        g, rng, t_start)
 
     # -- phase 8: LM serving, the dense decoder through kernel 4 ------------
     log(f"[time] phase 8 starts at {time.perf_counter() - t_start:.1f} s")
@@ -4430,17 +4780,20 @@ def main() -> int:
     log(f"[time] phase 8c starts at {time.perf_counter() - t_start:.1f} s")
     ssd_errs, ssd_t = ssd_phase()
     log(f"[time] phase 8d starts at {time.perf_counter() - t_start:.1f} s")
-    lm_launches["8d"] = lm_phase("8d", SSM_ARCH, SSM_SEED)
+    lm_launches["8d"] = lm_phase("8d", SSM_ARCH, SSM_SEED,
+                                 layers=SERVE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[time] phase 8e starts at {time.perf_counter() - t_start:.1f} s")
-    lm_launches["8e"] = lm_phase("8e", HYBRID_ARCH, HYBRID_SEED)
+    lm_launches["8e"] = lm_phase("8e", HYBRID_ARCH, HYBRID_SEED,
+                                 layers=SERVE_LAYERS)
     # -- phase 8f-i: the moe, vlm and audio families -----------------------
     for phase, arch, seed, kw in (
-            ("8f", MOE_ARCH, MOE_SEED, {}),
+            ("8f", MOE_ARCH, MOE_SEED, {"layers": SERVE_LAYERS}),
             ("8g", SHARED_MOE_ARCH, SHARED_MOE_SEED,
              {"layers": SHARED_MOE_LAYERS}),
-            ("8h", VLM_ARCH, VLM_SEED, {"prompt_len": VLM_TEXT}),
+            ("8h", VLM_ARCH, VLM_SEED,
+             {"prompt_len": VLM_TEXT, "layers": SERVE_LAYERS}),
             ("8i", AUDIO_ARCH, AUDIO_SEED, {"prompt_len": AUDIO_PROMPT})):
         gc.collect()
         torch.cuda.empty_cache()
@@ -4457,6 +4810,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[time] phase 9 starts at {time.perf_counter() - t_start:.1f} s")
     train_phase(t_start)
+
+    # -- phase 10: the device mesh, the sharding rules and the dry run -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] phase 10 starts at {time.perf_counter() - t_start:.1f} s")
+    mesh_phase(t_start, dry)
 
     # -- phase 7: the kernels line, the card, and the result -----------------
     t, tm = times["pagerank"], times[("pagerank", 1.0)]

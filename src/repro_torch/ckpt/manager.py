@@ -8,10 +8,12 @@ checkpoint. Arrays are stored logically unsharded with their tree structure
 byte for byte: a checkpoint written by either package restores in the
 other.
 
-The reference lays a restored tree out against a device mesh
-(``shardings=``); the port has no mesh yet (ROADMAP Queue 1 item 10), so
-``restore(..., shardings=...)`` raises. Training (item 9) reuses this
-manager.
+``restore(..., shardings=..., mesh=...)`` lays the restored tree out on a
+device mesh, as the reference's ``reshard``: each leaf, read whole, goes
+through ``distribute_tensor`` with its placements, so any mesh takes any
+checkpoint (a smaller one than the mesh that saved it: an elastic resize).
+Saving takes host arrays: a sharded state is gathered first
+(``interop.train_state_to_arrays``). Training reuses this manager.
 """
 from __future__ import annotations
 
@@ -79,6 +81,22 @@ def _unflatten(flat: dict):
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     return tree
+
+
+def reshard(tree, shardings, mesh):
+    """A host-side tree laid out on ``mesh``: each numpy leaf a DTensor by
+    the placements at the same place in ``shardings``."""
+    if isinstance(tree, dict):
+        return {k: reshard(v, shardings[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [reshard(v, s, mesh) for v, s in zip(tree, shardings)]
+        return out if isinstance(tree, list) else tuple(out)
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    t = torch.from_numpy(np.array(tree, copy=True))
+    if mesh.device_type != "cpu":
+        t = t.to(mesh.device_type)
+    return distribute_tensor(t, mesh, list(shardings))
 
 
 class CheckpointManager:
@@ -152,14 +170,11 @@ class CheckpointManager:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None = None, shardings=None):
-        """Returns (tree, meta), the leaves as numpy arrays. ``shardings``
-        (laying the tree out over a device mesh) waits for the port's mesh,
-        ROADMAP Queue 1 item 10, and raises."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) needs the port's device mesh "
-                "(ROADMAP Queue 1 item 10)")
+    def restore(self, step: int | None = None, shardings=None, mesh=None):
+        """Returns (tree, meta), the leaves as numpy arrays; with
+        ``shardings`` (a tree of the checkpoint's structure whose leaves
+        are DTensor placements) and ``mesh`` (a ``DeviceMesh``), the leaves
+        as DTensors laid out on ``mesh`` (:func:`reshard`)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -173,4 +188,6 @@ class CheckpointManager:
         spec = meta.get("treedef")
         tree = (_from_treedef(spec, flat) if spec is not None
                 else _unflatten(flat))
+        if shardings is not None:
+            tree = reshard(tree, shardings, mesh)
         return tree, meta

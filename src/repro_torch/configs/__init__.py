@@ -5,8 +5,10 @@ reference's ``repro/configs`` (the configs are data).
 family-preserving smoke-test config; ``input_specs(cfg, shape,
 concrete=True)`` and ``cache_specs(cfg, shape, concrete=True)`` small
 concrete inputs and caches as torch tensors, from the same numpy draws as
-the reference's. The reference's abstract (``ShapeDtypeStruct``) form
-belongs to its dry run, which the port does not have yet.
+the reference's; with ``concrete=False`` (the default, as the reference's)
+their abstract form, tensors on the ``meta`` device whose shapes and
+dtypes are the reference's ``ShapeDtypeStruct``s (the dry run's,
+``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -80,26 +82,27 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
 def input_specs(cfg: ArchConfig, shape: ShapeConfig, *, concrete=False,
                 batch_override: int | None = None,
                 seq_override: int | None = None, device="cuda") -> dict:
-    """Small concrete model inputs for (cfg, shape) as torch tensors on
-    ``device`` (the card unless the caller asks for the CPU), drawn as the
-    reference draws them (tokens from ``default_rng(0)``, embeddings from
-    ``default_rng(1)``). Only ``concrete=True`` is supported."""
-    if not concrete:
-        raise NotImplementedError(
-            "abstract input specs belong to the dry run (ROADMAP Queue 1 "
-            "item 10); pass concrete=True")
+    """Model inputs for (cfg, shape): with ``concrete`` small torch tensors
+    on ``device`` (the card unless the caller asks for the CPU), drawn as
+    the reference draws them (tokens from ``default_rng(0)``, embeddings
+    from ``default_rng(1)``); without it ``meta`` tensors of the same
+    shapes and dtypes (int32 tokens, ``cfg.dtype`` embeddings)."""
     from repro_torch.core.engine import resolve_device
-    device = resolve_device(device)
+    device = resolve_device(device) if concrete else torch.device("meta")
     b = batch_override or shape.global_batch
     s = seq_override or shape.seq_len
     cdt = getattr(torch, cfg.dtype)
 
     def tok(shp):
+        if not concrete:
+            return torch.empty(shp, dtype=torch.int32, device=device)
         rng = np.random.default_rng(0)
         return torch.as_tensor(rng.integers(0, cfg.vocab_size, size=shp,
                                             dtype=np.int32), device=device)
 
     def emb(shp):
+        if not concrete:
+            return torch.empty(shp, dtype=cdt, device=device)
         rng = np.random.default_rng(1)
         return torch.as_tensor(rng.normal(size=shp).astype(np.float32),
                                device=device).to(cdt)
@@ -126,15 +129,13 @@ def cache_specs(cfg: ArchConfig, shape: ShapeConfig, *, concrete=False,
     """A zero cache for decode shapes (``model.init_cache``: K/V where the
     family has attention, f32 SSM states and conv windows where it has an
     SSM, cross K/V of ``enc_seq`` = the sequence length for whisper, as the
-    reference's). Only ``concrete=True`` is supported."""
+    reference's); without ``concrete`` the same cache on the ``meta``
+    device, nothing allocated."""
     from repro_torch.models import model as model_lib
-    if not concrete:
-        raise NotImplementedError(
-            "abstract cache specs belong to the dry run (ROADMAP Queue 1 "
-            "item 10); pass concrete=True")
     b = batch_override or shape.global_batch
     s = seq_override or shape.seq_len
-    return model_lib.init_cache(cfg, b, s, enc_seq=s, device=device)
+    return model_lib.init_cache(cfg, b, s, enc_seq=s,
+                                device=device if concrete else "meta")
 
 
 __all__ = ["ARCH_NAMES", "SHAPES", "get", "all_configs", "reduced",

@@ -14,73 +14,39 @@ world of one. Runs on the card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
-import os
-import pickle
-import tempfile
-import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from repro_torch.core import algorithms as A
 from repro_torch.core import graph as G
 from repro_torch.core.distributed import DistributedEngine
 from repro_torch.core.engine import (EngineConfig, StructureAwareEngine,
                                      resolve_device)
+from repro_torch.launch.mesh import run_ranks as mesh_run_ranks
 
 
-def _rank_main(rank: int, nproc: int, tmp: str, device_type: str,
-               jobs: list) -> None:
-    if device_type == "cuda":
-        torch.cuda.set_device(rank)
-        device, backend = torch.device("cuda", rank), "nccl"
-    else:
-        # the plain versions run many small ops: one thread per rank
-        torch.set_num_threads(1)
-        device, backend = torch.device("cpu"), "gloo"
-    dist.init_process_group(backend, rank=rank, world_size=nproc,
-                            store=dist.FileStore(os.path.join(tmp, "store"),
-                                                 nproc))
-    try:
-        out = [DistributedEngine(g, A.REGISTRY[name](), cfg,
-                                 blocks_per_device=bpd, device=device).run()
-               for g, name, cfg, bpd in jobs]
-    finally:
-        dist.destroy_process_group()
-    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
-        pickle.dump(out, f)
+def _run_jobs(rank: int, jobs: list, device_type: str) -> list:
+    device = (torch.device("cuda", rank) if device_type == "cuda"
+              else torch.device("cpu"))
+    return [DistributedEngine(g, A.REGISTRY[name](), cfg,
+                              blocks_per_device=bpd, device=device).run()
+            for g, name, cfg, bpd in jobs]
 
 
 def run_ranks(jobs: list, nproc: int, device="cuda",
               timeout: float = 600.0) -> list:
     """Run ``jobs`` ((graph, program name, EngineConfig, blocks_per_device)
     tuples) through :class:`DistributedEngine` on a group of ``nproc``
-    spawned ranks. Returns each rank's list of RunResults. Raises
-    ``TimeoutError`` (after killing the ranks) when they outlast
-    ``timeout`` seconds."""
+    spawned ranks (``launch.mesh.run_ranks``). Returns each rank's list of
+    RunResults. Raises ``TimeoutError`` (after killing the ranks) when
+    they outlast ``timeout`` seconds."""
     dev = resolve_device(device)
     if dev.type == "cuda" and nproc > torch.cuda.device_count():
         raise ValueError(f"{nproc} ranks need {nproc} cards; "
                          f"{torch.cuda.device_count()} present")
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.start_processes(_rank_main, args=(nproc, tmp, dev.type, jobs),
-                                 nprocs=nproc, join=False,
-                                 start_method="spawn")
-        deadline = time.monotonic() + timeout
-        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
-            if time.monotonic() >= deadline:
-                for p in ctx.processes:
-                    p.kill()
-                    p.join()
-                raise TimeoutError(f"{nproc} ranks still running after "
-                                   f"{timeout} s")
-        out = []
-        for r in range(nproc):
-            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
-                out.append(pickle.load(f))
-        return out
+    return mesh_run_ranks(_run_jobs, nproc, dev.type, (jobs, dev.type),
+                          timeout=timeout)
 
 
 def main(argv=None) -> int:

@@ -42,7 +42,9 @@ counterpart). :func:`train_state_from_arrays` and
 :func:`train_state_to_arrays` carry a whole train state (parameters and
 AdamW's moments and step) across, either way: the port's trainer
 checkpoints through them, so a checkpoint written by either package
-resumes in the other.
+resumes in the other. A sharded state (DTensor leaves) goes out gathered
+whole, and comes back sharded from a checkpoint restored onto a mesh
+(``CheckpointManager.restore(shardings=checkpoint_specs(...))``).
 """
 from __future__ import annotations
 
@@ -187,13 +189,70 @@ def _f32_like(name: str, a, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _sharded_state(cfg: ArchConfig, tree: dict) -> dict:
+    """:func:`train_state_from_arrays` of DTensor leaves (stacked as the
+    checkpoint's): every layer's leaf a DTensor of its own, the model
+    built on ``meta`` and given them (nothing else allocated)."""
+    from repro_torch.models.model import Model, set_parameter
+    model = Model(cfg, "meta")
+    want = _port_named(tree["params"])
+    _same_names(want, dict(model.named_parameters()))
+    for name, t in want.items():
+        set_parameter(model, name, t.to(torch.float32).clone())
+    opt = {mom: {k: t.to(torch.float32).clone()
+                 for k, t in _port_named(tree["opt"][mom]).items()}
+           for mom in ("m", "v")}
+    opt["step"] = tree["opt"]["step"].to(torch.int32)
+    return {"params": model, "opt": opt}
+
+
+def checkpoint_specs(specs: dict) -> dict:
+    """Placements keyed by the port's names (``launch.sharding.
+    state_specs``) as the checkpoint's tree (``train_state_to_arrays``):
+    a layer stack's leaf (L, ...) takes its layers' placements with each
+    ``Shard`` one dim further (its layers' must agree)."""
+    from torch.distributed.tensor import Shard
+
+    def stacked(named: dict) -> dict:
+        out = {}
+        for name, pl in named.items():
+            parts = name.split(".")
+            if parts[0] in ("layers", "enc_layers"):
+                key = ".".join([parts[0], "*", *parts[2:]])
+                pl = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p
+                           for p in pl)
+                if out.setdefault(key, pl) != pl:
+                    raise ValueError(f"{name}: placements differ across the "
+                                     "layer stack")
+            else:
+                out[name] = pl
+        tree: dict = {}
+        for key, pl in out.items():
+            parts = key.split(".")
+            if parts[1:2] == ["*"]:
+                parts = [parts[0], *parts[2:]]
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = pl
+        return tree
+    return {"params": stacked(specs["params"]),
+            "opt": {"m": stacked(specs["opt"]["m"]),
+                    "v": stacked(specs["opt"]["v"]),
+                    "step": specs["opt"]["step"]}}
+
+
 def train_state_from_arrays(cfg: ArchConfig, tree: dict, device="cuda"):
     """The port's train state (``repro_torch.train.step``) from the
     reference's ``{"params", "opt": {"m", "v", "step"}}`` with numpy
     leaves (its ``CheckpointManager.restore()``, or ``jax.device_get`` of
     a live state): the parameters as :func:`lm_params_from_arrays`, ``m``
     and ``v`` as f32 tensors keyed by the port's parameter names, ``step``
-    a 0-d int32 tensor, all on ``device``."""
+    a 0-d int32 tensor, all on ``device``. DTensor leaves (a checkpoint
+    restored onto a mesh) give a sharded state laid out as they are."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree["opt"]["step"], DTensor):
+        return _sharded_state(cfg, tree)
     model = lm_params_from_arrays(cfg, tree["params"], device)
     named = dict(model.named_parameters())
     opt = {}
@@ -213,12 +272,17 @@ def train_state_to_arrays(cfg: ArchConfig, state: dict) -> dict:
     reference's names, ``step`` an int32 scalar), which the reference's
     ``jax.tree.map(jnp.asarray, ...)`` resumes from and either package's
     ``CheckpointManager`` saves."""
+    from torch.distributed.tensor import DTensor
+
+    def whole(t):  # a DTensor gathered (every rank calls this)
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
     def host(named: dict) -> dict:
-        return _reference_tree({k: v.detach().to("cpu", torch.float32)
+        return _reference_tree({k: whole(v.detach()).to("cpu", torch.float32)
                                 .numpy() for k, v in named.items()})
     model = state["params"]
     return {"params": host(dict(model.named_parameters())),
             "opt": {"m": host(state["opt"]["m"]),
                     "v": host(state["opt"]["v"]),
-                    "step": np.asarray(int(state["opt"]["step"]),
+                    "step": np.asarray(int(whole(state["opt"]["step"])),
                                        dtype=np.int32)}}

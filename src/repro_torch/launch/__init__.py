@@ -1,2 +1,5 @@
-"""Launchers: ``python -m repro_torch.launch.serve`` (LM serving) and
-``python -m repro_torch.launch.train`` (LM training)."""
+"""Launchers: ``python -m repro_torch.launch.serve`` (LM serving),
+``python -m repro_torch.launch.train`` (LM training, on a mesh with
+``--nproc``), ``.dryrun``, ``.roofline`` and ``.perf`` (the fake-device
+dry run and its H100 projections); ``.mesh`` and ``.sharding`` hold the
+meshes and the sharding rules."""

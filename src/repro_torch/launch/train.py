@@ -1,20 +1,29 @@
 """End-to-end training driver; port of ``repro/launch/train.py``.
 
-Trains on one device, the card unless ``--device cpu`` is given: streams
-the synthetic pipeline, checkpoints on a cadence and on SIGTERM through
+Trains on the card unless ``--device cpu`` is given: streams the
+synthetic pipeline, checkpoints on a cadence and on SIGTERM through
 ``repro_torch.ckpt.CheckpointManager`` (the reference's format, through
 ``interop.train_state_to_arrays``: a checkpoint written by either package
 resumes in the other), auto-resumes from the latest checkpoint, feeds the
 straggler monitor, rebalances MoE experts (``--expert-rebalance``), and
 can simulate a crash after a step (``--fail-at``: it saves and exits 42)
-to exercise the restart. There is no mesh yet (ROADMAP Queue 1 item 10):
-``--model-axis`` above 1 raises, and the rebalancer runs at one shard, as
-the reference's does on one device.
+to exercise the restart.
+
+On one device without ``--nproc`` the state is plain tensors. With
+``--nproc K`` it spawns K ranks (gloo on ``--device cpu``, NCCL on the
+cards, over a FileStore in a temporary directory) and, on each, builds
+the ("data", "model") mesh ``make_host_mesh(model=--model-axis)`` over
+them, as the reference builds it over its devices: the state laid out by
+``state_specs``, the batch by ``P("data", None)``, a resume through
+``restore(shardings=...)`` onto the mesh, and the expert rebalancer at
+the mesh's model size. Rank 0 logs and writes the checkpoints.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3p2_1b \\
         --reduced --steps 200 --batch 8 --seq 256 --ckpt-dir ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --steps 20 --batch 4 --seq 32 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --model-axis 2 --nproc 4 --device cpu
 """
 from __future__ import annotations
 
@@ -26,14 +35,18 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.core.engine import resolve_device
 from repro_torch.data import SyntheticLM
 from repro_torch.ft import StragglerMonitor
-from repro_torch.interop import (train_state_from_arrays,
+from repro_torch.interop import (checkpoint_specs, train_state_from_arrays,
                                  train_state_to_arrays)
+from repro_torch.launch import sharding as shard_lib
+from repro_torch.launch.mesh import make_host_mesh, run_ranks
+from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
 from repro_torch.train.step import init_state, make_train_step
 
@@ -51,7 +64,7 @@ def _config(args):
     return cfg
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3p2_1b")
     ap.add_argument("--reduced", action="store_true")
@@ -74,12 +87,41 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
-    args = ap.parse_args(argv)
-    if args.model_axis > 1:
-        raise NotImplementedError(
-            "--model-axis > 1 needs the port's device mesh (ROADMAP Queue 1 "
-            "item 10); the port trains on one device")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="ranks to spawn, each training on the mesh (0: "
+                         "this process alone, on one device)")
+    return ap
+
+
+def main(argv=None):
+    """Trains as the arguments say; returns the losses (rank 0's)."""
+    args = _parser().parse_args(argv)
+    if args.nproc:
+        device = resolve_device(args.device)
+        return run_ranks(_rank_main, args.nproc, device.type,
+                         (argv if argv is not None else sys.argv[1:],),
+                         timeout=3600.0)[0]
+    return _train(args)
+
+
+def _rank_main(rank: int, argv) -> list:
+    return _train(_parser().parse_args(argv))
+
+
+def _train(args) -> list:
     device = resolve_device(args.device)
+    mesh = None
+    if args.model_axis > 1 or args.nproc:
+        if not dist.is_initialized():
+            raise ValueError(f"--model-axis {args.model_axis} needs a group "
+                             "of ranks: pass --nproc")
+        mesh = make_host_mesh(model=args.model_axis,
+                              device_type=device.type)
+    lead = mesh is None or dist.get_rank() == 0
+
+    def log(msg):
+        if lead:
+            print(msg, flush=True)
 
     cfg = _config(args)
     opt_cfg = AdamWConfig(peak_lr=args.lr, total_steps=args.steps,
@@ -87,15 +129,32 @@ def main(argv=None):
     step_fn = make_train_step(cfg, opt_cfg, num_microbatches=args.micro)
 
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    sspecs = (shard_lib.state_specs({"params": Model(cfg, "meta")}, mesh)
+              if mesh is not None else None)
     start_step = 0
     if ckpt and ckpt.latest_step() is not None:
-        tree, meta = ckpt.restore()
+        if mesh is None:
+            tree, meta = ckpt.restore()
+        else:
+            tree, meta = ckpt.restore(shardings=checkpoint_specs(sspecs),
+                                      mesh=mesh)
         state = train_state_from_arrays(cfg, tree, device)
         start_step = meta["step"]
-        print(f"[train] resumed from step {start_step}")
+        log(f"[train] resumed from step {start_step}")
     else:
         gen = torch.Generator(device).manual_seed(args.seed)
         state = init_state(cfg, gen, opt_cfg)
+        if mesh is not None:
+            state = shard_lib.distribute_state(state, mesh, sspecs)
+    if mesh is not None:
+        bspec = shard_lib.to_placements(("data", None), mesh)
+
+        def to_device(v):
+            return shard_lib.distribute(torch.from_numpy(v).to(device),
+                                        mesh, bspec)
+    else:
+        def to_device(v):
+            return torch.from_numpy(v).to(device)
 
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
     monitor = StragglerMonitor()
@@ -103,12 +162,23 @@ def main(argv=None):
     if args.expert_rebalance and cfg.num_experts:
         from repro_torch.train.expert_balance import (ExpertRebalancer,
                                                       permute_expert_axis)
+        shards = (mesh.shape[mesh.mesh_dim_names.index("model")]
+                  if mesh is not None else 1)
         rebalancer = ExpertRebalancer(
-            num_experts=cfg.experts_eff, num_shards=1,
+            num_experts=cfg.experts_eff, num_shards=shards,
             interval=max(args.steps // 8, 5))
+        log(f"[train] expert rebalancer over {shards} shard(s)")
 
     def save(step):
-        ckpt.save(step, train_state_to_arrays(cfg, state))
+        arrays = train_state_to_arrays(cfg, state)  # every rank gathers
+        if lead:
+            ckpt.save(step, arrays)
+
+    def wait():
+        if lead:
+            ckpt.wait()
+        if mesh is not None:
+            dist.barrier()
 
     stop = {"now": False}
     previous = signal.signal(signal.SIGTERM,
@@ -117,18 +187,17 @@ def main(argv=None):
     try:
         for step in range(start_step, args.steps):
             t0 = time.perf_counter()
-            batch = {k: torch.from_numpy(v).to(device)
-                     for k, v in data.batch(step).items()}
+            batch = {k: to_device(v) for k, v in data.batch(step).items()}
             state, metrics = step_fn(state, batch)
+            metrics = {k: shard_lib.full(v) for k, v in metrics.items()}
             loss = float(metrics["loss"])
             losses.append(loss)
             dt = time.perf_counter() - t0
             health = monitor.observe(dt)
             if step % args.log_every == 0 or step == args.steps - 1:
-                print(f"[train] step={step} loss={loss:.4f} "
-                      f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms"
-                      + (" STRAGGLER" if health["straggler"] else ""),
-                      flush=True)
+                log(f"[train] step={step} loss={loss:.4f} "
+                    f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms"
+                    + (" STRAGGLER" if health["straggler"] else ""))
             if rebalancer is not None:
                 perm = rebalancer.observe(
                     metrics["expert_load"].cpu().numpy().astype(np.float64),
@@ -139,33 +208,33 @@ def main(argv=None):
                     for mom in ("m", "v"):
                         state["opt"][mom] = permute_expert_axis(
                             state["opt"][mom], perm)
-                    print(f"[train] step={step} expert rebalance #"
-                          f"{rebalancer.moves} applied")
+                    log(f"[train] step={step} expert rebalance #"
+                        f"{rebalancer.moves} applied")
             if ckpt and (step + 1) % args.ckpt_every == 0:
                 save(step + 1)
             if args.fail_at is not None and step + 1 >= args.fail_at:
-                print(f"[train] simulating failure at step {step + 1}")
+                log(f"[train] simulating failure at step {step + 1}")
                 if ckpt:
                     save(step + 1)
-                    ckpt.wait()
+                    wait()
                 sys.exit(42)
             if stop["now"]:
-                print("[train] SIGTERM: checkpointing and exiting")
+                log("[train] SIGTERM: checkpointing and exiting")
                 if ckpt:
                     save(step + 1)
-                    ckpt.wait()
+                    wait()
                 sys.exit(0)
         if ckpt:
             save(args.steps)
-            ckpt.wait()
+            wait()
     finally:
         signal.signal(signal.SIGTERM, previous)
     if losses:
-        print(f"[train] done: first loss {losses[0]:.4f} -> last "
-              f"{losses[-1]:.4f}")
+        log(f"[train] done: first loss {losses[0]:.4f} -> last "
+            f"{losses[-1]:.4f}")
     else:
-        print(f"[train] nothing to do (resumed at step {start_step} "
-              f">= {args.steps})")
+        log(f"[train] nothing to do (resumed at step {start_step} "
+            f">= {args.steps})")
     return losses
 
 

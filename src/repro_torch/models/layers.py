@@ -12,6 +12,7 @@ instead, ``repro_torch.interop.lm_params_from_arrays``).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -20,6 +21,94 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * weight.float()).to(dt)
+
+
+def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t``, a constant that every rank makes alike (positions, masks,
+    an accumulator's start), as a replicated DTensor on ``ref``'s mesh
+    where ``ref`` is a DTensor (a sharded program's activation); ``t``
+    itself where it is not. Every constant of the blocks goes through it
+    (or a ``new_*`` factory of a DTensor), so a sharded program never
+    mixes plain tensors and DTensors. A DTensor ``t`` is returned as it
+    is."""
+    if not isinstance(ref, DTensor) or isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, ref.device_mesh,
+                              [Replicate()] * ref.device_mesh.ndim,
+                              run_check=False)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes its gradient contiguous: a
+    DTensor takes a local gradient under its own (contiguous) strides, and
+    a view of it fails on a transposed one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def local(t: DTensor, placements, work=None) -> torch.Tensor:
+    """This rank's shard of ``t`` laid out by ``placements``
+    (redistributed first where they differ). ``work``: the placements of
+    the rank-local computation that takes it (its output's, or its
+    sharded operand's); along a mesh dim where the work is sharded and
+    ``t`` is whole, each rank's gradient of ``t`` holds only its shard's
+    part, so there it is taken as a partial sum (reduced across the
+    ranks), not as a replica."""
+    placements = list(placements)
+    grad = None
+    if work is not None:
+        grad = [Partial() if isinstance(w, Shard) and p == Replicate()
+                else p for p, w in zip(placements, work)]
+    out = t.redistribute(t.device_mesh, placements).to_local(
+        grad_placements=grad)
+    return _ContiguousGrad.apply(out) if out.requires_grad else out
+
+
+def wrap_local(t: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """The DTensor of global ``shape`` whose shard on this rank is ``t``,
+    laid out by ``placements`` (the inverse of :func:`local`). Its
+    strides are the contiguous ones, so a strided ``t`` is copied
+    contiguous first (DTensor's views act on the shard as laid out)."""
+    shape = torch.Size(shape)
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return DTensor.from_local(t.contiguous(), mesh, list(placements),
+                              run_check=False, shape=shape,
+                              stride=tuple(reversed(stride)))
+
+
+def keep_shards(t: DTensor, dims) -> list:
+    """``t``'s placements with its ``Shard`` on the tensor dims ``dims``
+    kept and every other placement made ``Replicate``."""
+    return [p if isinstance(p, Shard) and p.dim in dims else Replicate()
+            for p in t.placements]
+
+
+def settle(t: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output before it joins the residual stream: a DTensor's
+    partial sums (a row-sharded projection's) reduced across their ranks
+    (an all-reduce), so the stream stays replicated over the model axis,
+    as the reference's partitioner keeps it. Left partial, DTensor's
+    rules would carry it into the next layer, gather the next weights
+    whole and compute the products again on every rank."""
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        return t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    return t
+
+
+def arange_like(n: int, ref: torch.Tensor, **kw) -> torch.Tensor:
+    """``torch.arange(n)`` on ``ref``'s device, laid out as
+    :func:`replicated_like`."""
+    return replicated_like(torch.arange(n, device=ref.device, **kw), ref)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -37,7 +126,10 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 def _mm_f32(a2: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) of one half-width dtype, accumulated and written in
-    f32 (``aten::mm.dtype``)."""
+    f32 (``aten::mm.dtype``; on DTensors through the rule of
+    :func:`register_mm_dtype_sharding`)."""
+    if isinstance(a2, DTensor):
+        register_mm_dtype_sharding()
     return torch.mm(a2, b, out_dtype=torch.float32)
 
 
@@ -48,12 +140,14 @@ class _MatmulF32(torch.autograd.Function):
     preferred_element_type=f32)``: the cotangent (here of the operands'
     dtype, which f32 holds exactly) times each operand, accumulated in
     f32 and rounded once, ``da = ct @ b^T`` and ``db = a^T @ ct``, each
-    a half-width ``mm(out_dtype=f32)``."""
+    a half-width ``mm(out_dtype=f32)`` whose partial sums (``db``'s over
+    the token-sharded rows) are reduced before the rounding, as in the
+    forward."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        out = _mm_f32(a.reshape(-1, a.shape[-1]), b)
+        out = settle(_mm_f32(a.reshape(-1, a.shape[-1]), b))
         return out.view(*a.shape[:-1], b.shape[-1]).to(a.dtype)
 
     @staticmethod
@@ -62,10 +156,49 @@ class _MatmulF32(torch.autograd.Function):
         c2 = ct.reshape(-1, ct.shape[-1])
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = _mm_f32(c2, b.t()).to(a.dtype).view(a.shape)
+            da = settle(_mm_f32(c2, b.t())).to(a.dtype).view(a.shape)
         if ctx.needs_input_grad[1]:
-            db = _mm_f32(a.reshape(-1, a.shape[-1]).t(), c2).to(b.dtype)
+            db = settle(_mm_f32(a.reshape(-1, a.shape[-1]).t(), c2)).to(
+                b.dtype)
         return da, db
+
+
+class _SettleGrad(torch.autograd.Function):
+    """The identity, whose backward reduces a DTensor gradient's partial
+    sums (:func:`settle`): put after an upcast, it makes the f32 gradient
+    whole before the upcast's backward rounds it to the narrow dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return settle(g)
+
+
+_MM_DTYPE_SHARDING: list = [False]
+
+
+def register_mm_dtype_sharding() -> None:
+    """Give DTensor a sharding rule for ``aten::mm.dtype`` (the card's
+    route of :func:`matmul_f32`), which it has none of: ``aten::mm``'s,
+    per mesh dim replicate all, shard M (the rows of ``a``), shard N (the
+    columns of ``b``), or shard K in both operands for a partial sum of
+    the f32 output. Idempotent; :func:`matmul_f32`'s card route calls it
+    on DTensors."""
+    if _MM_DTYPE_SHARDING[0] or "dtype" not in torch.ops.aten.mm.overloads():
+        return
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.mm.dtype)
+    def _mm_dtype(a, b, out_dtype):  # placements: [out], [a, b, out_dtype]
+        return [([Replicate()], [Replicate(), Replicate(), None]),
+                ([Shard(0)], [Shard(0), Replicate(), None]),
+                ([Shard(1)], [Replicate(), Shard(1), None]),
+                ([Partial()], [Shard(1), Shard(0), None])]
+    _MM_DTYPE_SHARDING[0] = True
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -79,14 +212,20 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     partials in it). A torch without that overload raises. Elsewhere both
     operands go to f32 first: the products of two bf16 values are exact in
     f32, so this is the same function up to sum order, and autograd's
-    transpose of it is the reference's."""
+    transpose of it is the reference's. A DTensor product's partial sums
+    are reduced in f32, before the rounding (:func:`settle`), as the
+    reference's partitioner reduces its f32 dot; so are the backward's
+    (the weight gradient's, summed over token-sharded rows)."""
     if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
         if "dtype" not in torch.ops.aten.mm.overloads():
             raise RuntimeError(
                 f"torch {torch.__version__} has no aten::mm.dtype: no "
                 "half-width GEMM with an f32 accumulator and output")
         return _MatmulF32.apply(a, b)
-    return torch.matmul(a.float(), b.float()).to(a.dtype)
+    a32, b32 = a.float(), b.float()
+    if isinstance(a, DTensor):
+        a32, b32 = _SettleGrad.apply(a32), _SettleGrad.apply(b32)
+    return settle(torch.matmul(a32, b32)).to(a.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float,
@@ -100,7 +239,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (..., S, H, Dh); positions: (..., S). The split-half form: the
     first and second halves of Dh are the pair rotated together."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)  # (Dh/2,)
+    freqs = replicated_like(rope_freqs(dh, theta, x.device),
+                            positions)  # (Dh/2,)
     angles = positions[..., None].float() * freqs  # (..., S, Dh/2)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, Dh/2)
     sin = torch.sin(angles)[..., None, :]

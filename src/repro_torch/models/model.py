@@ -47,9 +47,25 @@ and the cache dict is returned; its ``pos`` is a Python int.
 with ``remat`` each decoder layer, the reference's scan ``body`` with
 whisper's cross K/V, runs under ``cfg.remat_policy`` through
 ``torch.utils.checkpoint`` (:func:`remat_wrap`); prefill and decoding run
-without autograd. ``cast_weights_once`` raises ``NotImplementedError``;
-the reference's sharding hooks are not ported yet (ROADMAP Queue 1 item
-10).
+without autograd.
+
+Sharding (the reference's hooks): a model whose parameters are DTensors
+(``repro_torch.launch.sharding.distribute_model``) runs the same code as a
+sharded program, every op through DTensor's sharding rules; an op without
+a rule raises. The constants the blocks make (positions, RoPE tables,
+the sinusoids) are replicated DTensors (``layers.replicated_like``); the
+attention, the SSD scan, the MoE's dispatch and combine and the
+embedding lookup run on each rank's shard as plain tensors.
+``set_attention_sharding`` installs the attention activations' layout:
+with ``cfg.shard_attn`` q, k, v and o (B, S, H, D) are redistributed to
+batch over the batch axes and heads over the model axis. A sharded
+program takes the plain routes: ``use_kernel=True`` raises there. With
+``cfg.cast_weights_once`` every >= 2-D f32 master of the layer stacks is
+cast to ``cfg.dtype`` once per forward, prefill or decode step, before the
+layer loop (so sharded gathers move ``cfg.dtype``), where each matmul
+otherwise casts its weight at its use: the same casts of the same values,
+so the logits are the same bits either way. Plain tensors take none of
+this: the unsharded program pays no DTensor overhead.
 """
 from __future__ import annotations
 
@@ -59,27 +75,101 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import flash_attention as kernel4
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.attention import local_span
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
-                                       rms_norm, silu, swiglu)
+from repro_torch.models.layers import (apply_rope, arange_like, dense_init,
+                                       embed_init, keep_shards, local,
+                                       replicated_like, rms_norm, settle,
+                                       silu, swiglu, wrap_local)
 
 
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.cast_weights_once:
-        # the reference casts the >= 2-D masters once per forward, outside
-        # its layer scan, so that sharded gathers move bf16; eager PyTorch
-        # casts each weight once per forward at its use, which gives the
-        # same bits, and the port has no sharded gathers to spare
+# Launcher-installed activation sharding for attention (see
+# set_attention_sharding): (batch axes, model axis name) or None.
+_ATTN_SHARDING: list = [None]
+
+
+def set_attention_sharding(batch_axes, model_axis) -> None:
+    """Install (or clear, with a None ``model_axis``) the attention
+    activations' layout used when ``cfg.shard_attn`` is on, by mesh axis
+    names. Called by the launch layer per mesh."""
+    _ATTN_SHARDING[0] = ((tuple(batch_axes), model_axis)
+                         if model_axis else None)
+
+
+def _constrain_bshd(x, cfg: ArchConfig):
+    """x (B, S, H, D) redistributed to batch over the installed batch axes
+    and heads over the model axis, where ``cfg.shard_attn`` is on and x
+    is a DTensor; x itself otherwise."""
+    if (not cfg.shard_attn or _ATTN_SHARDING[0] is None
+            or not isinstance(x, DTensor)):
+        return x
+    batch_axes, model_axis = _ATTN_SHARDING[0]
+    mesh = x.device_mesh
+    want = [Shard(0) if a in batch_axes else
+            Shard(2) if a == model_axis else Replicate()
+            for a in mesh.mesh_dim_names]
+    return x.redistribute(mesh, want)
+
+
+def _heads(x, n: int, dh: int):
+    """(B, S, n * dh) -> (B, S, n, dh). A DTensor whose last dim is
+    sharded across more ranks than divide ``n`` (a head would be split) is
+    gathered on it first (``redistribute``)."""
+    if isinstance(x, DTensor):
+        mesh, want, ranks = x.device_mesh, list(x.placements), 1
+        for i, p in enumerate(want):
+            if isinstance(p, Shard) and p.dim == x.dim() - 1:
+                ranks *= mesh.size(i)
+        if n % ranks:
+            want = [Replicate() if isinstance(p, Shard)
+                    and p.dim == x.dim() - 1 else p for p in want]
+            x = x.redistribute(mesh, want)
+    return x.reshape(*x.shape[:-1], n, dh)
+
+
+def _plain_routes(params, use_kernel: bool) -> None:
+    """A sharded model (DTensor parameters) takes the plain routes, as the
+    reference's sharded programs do: ``use_kernel`` raises there."""
+    if use_kernel and isinstance(params.embed, DTensor):
         raise NotImplementedError(
-            f"{cfg.name}: cast_weights_once is not ported (each weight is "
-            "cast once per forward at its use, with the same bits); set it "
-            "False")
+            "use_kernel=True on a sharded model: the sharded program takes "
+            "the plain routes (kernels 4 and 5 take plain tensors)")
+
+
+class _CastLayer:
+    """A layer's parameters under their names, each >= 2-D f32 master cast
+    to ``dtype`` (``cast_weights_once``); 1-D vectors (norms, biases,
+    a_log, dt_bias) stay f32."""
+
+    def __init__(self, module: nn.Module, dtype):
+        self._params = {}
+        for name, p in module.named_parameters(recurse=False):
+            if p.dim() >= 2 and p.dtype == torch.float32:
+                p = p.to(dtype)
+            self._params[name] = p
+            setattr(self, name, p)
+        for name, child in module.named_children():
+            setattr(self, name, _CastLayer(child, dtype))
+
+    def named_parameters(self):
+        return self._params.items()
+
+
+def _cast_layers(layers, cfg: ArchConfig):
+    """The layer stack as the loop reads it: cast once per call under
+    ``cfg.cast_weights_once`` (the reference's ``_cast_layers``), else the
+    modules themselves (each matmul casts at its use)."""
+    if not cfg.cast_weights_once:
+        return layers
+    cdt = getattr(torch, cfg.dtype)
+    return [_CastLayer(layer, cdt) for layer in layers]
 
 
 def _param(*shape, device, fill=None) -> nn.Parameter:
@@ -182,8 +272,10 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         super().__init__()
-        _require_ported(cfg)
-        device = resolve_device(device)
+        # "meta" builds the parameters' shapes and nothing else (the dry
+        # run's abstract model); any other device must be a real one
+        device = (torch.device("meta") if str(device) == "meta"
+                  else resolve_device(device))
         self.cfg = cfg
         self.embed = _param(cfg.vocab_padded, cfg.d_model, device=device)
         self.ln_f = _param(cfg.d_model, device=device, fill=1.0)
@@ -198,6 +290,14 @@ class Model(nn.Module):
                 DecoderLayer(cfg, device)
                 for _ in range(cfg.encoder_layers))
             self.enc_ln_f = _param(cfg.d_model, device=device, fill=1.0)
+
+
+def set_parameter(model: nn.Module, name: str, t: torch.Tensor,
+                  requires_grad: bool = True) -> None:
+    """Replace ``model``'s parameter ``name`` (a dotted path) by ``t``."""
+    owner, _, leaf = name.rpartition(".")
+    mod = model.get_submodule(owner) if owner else model
+    setattr(mod, leaf, nn.Parameter(t, requires_grad=requires_grad))
 
 
 def tree_param_count(cfg: ArchConfig) -> int:
@@ -316,7 +416,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> Model:
     wq/wk/wv columns and wo rows, padded experts zero weights and router
     columns), the SSM's dt bias the inverse softplus of a log-uniform dt in
     [1e-3, 1e-1] and ``a_log`` the log of a uniform A in [1, 16]."""
-    _require_ported(cfg)
     model = Model(cfg, generator.device)
     d = cfg.d_model
     model.embed.copy_(embed_init(generator, (cfg.vocab_padded, d)))
@@ -343,10 +442,10 @@ def _attention_block(h, ap: Attention, cfg: ArchConfig, positions,
     dh = cfg.resolved_head_dim
     hq, hkv = cfg.q_heads_eff, cfg.kv_heads_eff
     cdt = h.dtype
-    q = (h @ ap.wq.to(cdt)).reshape(b, s, hq, dh)
+    q = _constrain_bshd(_heads(h @ ap.wq.to(cdt), hq, dh), cfg)
     if kv_override is None:
-        k = (h @ ap.wk.to(cdt)).reshape(b, s, hkv, dh)
-        v = (h @ ap.wv.to(cdt)).reshape(b, s, hkv, dh)
+        k = _constrain_bshd(_heads(h @ ap.wk.to(cdt), hkv, dh), cfg)
+        v = _constrain_bshd(_heads(h @ ap.wv.to(cdt), hkv, dh), cfg)
     else:
         k, v = kv_override
     if cfg.qk_norm:
@@ -364,7 +463,8 @@ def _attention_block(h, ap: Attention, cfg: ArchConfig, positions,
         o = attn_lib.chunked_attention(q, k, v, causal=causal)
     else:
         o = attn_lib.full_attention(q, k, v, causal=causal)
-    out = o.reshape(b, s, hq * dh) @ ap.wo.to(cdt)
+    o = _constrain_bshd(o, cfg)
+    out = settle(o.reshape(b, s, hq * dh) @ ap.wo.to(cdt))
     return out, (k, v)
 
 
@@ -387,7 +487,7 @@ def _ssm_out(y, xh, z, sp: SSM):
     cdt = xh.dtype
     y = y + xh * sp.d_skip.to(cdt)[None, None, :, None]
     y = rms_norm(y.reshape(b, s, hh * pp) * silu(z), sp.ssm_norm)
-    return y @ sp.out.to(cdt)
+    return settle(y @ sp.out.to(cdt))
 
 
 def _ssm_block(h, sp: SSM, cfg: ArchConfig, use_kernel: bool = False):
@@ -433,23 +533,53 @@ def _ffn_block(x, layer: DecoderLayer, cfg: ArchConfig):
     reference's, or the SwiGLU. Returns (out, aux or None)."""
     cdt = x.dtype
     if cfg.num_experts:
-        return moe_lib.moe_ffn(
+        y, aux = moe_lib.moe_ffn(
             x, {name: p.to(cdt) for name, p in layer.moe.named_parameters()},
             num_experts=cfg.experts_eff, top_k=cfg.experts_per_token,
             capacity_factor=cfg.capacity_factor,
             num_real_experts=cfg.num_experts)
+        return settle(y), aux
     m = layer.mlp
-    return swiglu(x, m.wg.to(cdt), m.wu.to(cdt), m.wd.to(cdt)), None
+    return settle(swiglu(x, m.wg.to(cdt), m.wu.to(cdt), m.wd.to(cdt))), None
 
 
 def _embed_inputs(params: Model, cfg: ArchConfig, batch) -> torch.Tensor:
     """Token embeddings, and for the vlm stub the patch embeddings
     (B, P, D) ahead of them, in the compute dtype."""
     cdt = getattr(torch, cfg.dtype)
-    x = params.embed[batch["tokens"].long()].to(cdt)
+    x = _lookup(params.embed, batch["tokens"].long()).to(cdt)
     if cfg.num_patches and "patches" in batch:
         x = torch.cat([batch["patches"].to(cdt), x], dim=1)
     return x
+
+
+def _lookup(table, tokens):
+    """``table[tokens]``. A DTensor table runs it rank-locally, as XLA
+    partitions the reference's gather: each rank looks up its tokens'
+    batch shard in its own vocabulary rows (its D shard kept), zeros where
+    a token lies outside them, and the rows' sums across the vocabulary's
+    ranks are all-reduced; the gradient is the indexing's own on each
+    shard (torch 2.11's DTensor rule for its backward, ``index_put``,
+    fails), summed over the batch's ranks where the table is whole."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    tokens = replicated_like(tokens, table)
+    pk = keep_shards(tokens, (0,))
+    pt = [Replicate() if isinstance(k, Shard) else t
+          for k, t in zip(pk, keep_shards(table, (0, 1)))]
+    tok, rows = local(tokens, pk), local(table, pt, pk)
+    off, n = local_span(table.shape[0], mesh, pt, 0)
+    mine = (tok >= off) & (tok < off + n)
+    got = torch.where(mine[..., None], rows[torch.where(mine, tok - off, 0)],
+                      0)
+    out = [Shard(0) if isinstance(k, Shard) else
+           Partial() if t == Shard(0) else
+           Shard(2) if isinstance(t, Shard) else Replicate()
+           for k, t in zip(pk, pt)]
+    whole = [Replicate() if isinstance(o, Partial) else o for o in out]
+    return wrap_local(got, mesh, out, (*tokens.shape, table.shape[1])
+                      ).redistribute(mesh, whole)
 
 
 def _sinusoid_pos(s: int, d: int, dtype, device) -> torch.Tensor:
@@ -467,9 +597,9 @@ def encode(params: Model, cfg: ArchConfig, frames) -> torch.Tensor:
     routes, the final norm -> (B, S_enc, D)."""
     cdt = getattr(torch, cfg.dtype)
     s = frames.shape[1]
-    x = frames.to(cdt) + _sinusoid_pos(s, cfg.d_model, cdt,
-                                       frames.device)[None]
-    for layer in params.enc_layers:
+    x = frames.to(cdt) + replicated_like(
+        _sinusoid_pos(s, cfg.d_model, cdt, frames.device), frames)[None]
+    for layer in _cast_layers(params.enc_layers, cfg):
         h = rms_norm(x, layer.ln1)
         a, _ = _attention_block(h, layer.attn, cfg, None, False)
         x = x + a
@@ -483,8 +613,8 @@ def _cross_kv(layer: DecoderLayer, cfg: ArchConfig, enc_out):
     b, se, _ = enc_out.shape
     shape = (b, se, cfg.kv_heads_eff, cfg.resolved_head_dim)
     cdt = enc_out.dtype
-    return ((enc_out @ layer.cross.wk.to(cdt)).reshape(shape),
-            (enc_out @ layer.cross.wv.to(cdt)).reshape(shape))
+    return (_heads(enc_out @ layer.cross.wk.to(cdt), *shape[2:]),
+            _heads(enc_out @ layer.cross.wv.to(cdt), *shape[2:]))
 
 
 def _cross_block(x, layer: DecoderLayer, cfg: ArchConfig, kv):
@@ -509,7 +639,7 @@ def _layers(params: Model, cfg: ArchConfig, x, use_kernel: bool,
     activation-checkpoint policy of each layer (:func:`remat_wrap`; a
     cache takes none). Returns (x, the MoE layers' aux dicts)."""
     s = x.shape[1]
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
+    positions = arange_like(s, x, dtype=torch.int32)[None]
     k_conv = cfg.ssm_conv_width - 1
 
     def body(x, layer, i):
@@ -545,7 +675,7 @@ def _layers(params: Model, cfg: ArchConfig, x, use_kernel: bool,
 
     block = body if cache is not None else remat_wrap(body, remat)
     auxes = []
-    for i, layer in enumerate(params.layers):
+    for i, layer in enumerate(_cast_layers(params.layers, cfg)):
         x, aux = block(x, layer, i)
         if aux is not None:
             auxes.append(aux)
@@ -618,7 +748,7 @@ def forward(params: Model, cfg: ArchConfig, batch, use_kernel: bool = False,
     body; without it, or under no grad mode, every activation is kept. The
     policy trades memory for recompute in the backward and changes no
     value."""
-    _require_ported(cfg)
+    _plain_routes(params, use_kernel)
     x, auxes = _layers(params, cfg, _embed_inputs(params, cfg, batch),
                        use_kernel, enc_out=_encoded(params, cfg, batch),
                        remat=cfg.remat_policy if remat else "none")
@@ -646,9 +776,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, enc_seq: int = 0,
     (L, B, K-1, H*P + 2N) in ``cfg.dtype`` where it has an SSM; cross K/V
     (L, B, enc_seq, Hkv, Dh) in ``cfg.dtype`` for whisper, where
     ``enc_seq`` is the frames' length. ``max_seq`` counts every position
-    the prefill writes: a vlm's patches too."""
-    _require_ported(cfg)
-    device = resolve_device(device)
+    the prefill writes: a vlm's patches too. ``device="meta"`` gives the
+    abstract cache (shapes and dtypes, nothing allocated)."""
+    device = (torch.device("meta") if str(device) == "meta"
+              else resolve_device(device))
     cdt = getattr(torch, cfg.dtype)
     nl = cfg.num_layers
     cache = {"pos": 0}
@@ -679,7 +810,7 @@ def prefill(params: Model, cfg: ArchConfig, batch, cache: dict,
     """Full-sequence prefill that also fills the cache (K/V at [0, S), S
     counting a vlm's patches, SSM states and conv windows, whisper's cross
     K/V). Returns (last-position logits (B, V), cache)."""
-    _require_ported(cfg)
+    _plain_routes(params, use_kernel)
     x, _ = _layers(params, cfg, _embed_inputs(params, cfg, batch),
                    use_kernel, cache, enc_out=_encoded(params, cfg, batch))
     cache["pos"] = x.shape[1]
@@ -690,21 +821,20 @@ def prefill(params: Model, cfg: ArchConfig, batch, cache: dict,
 def decode_step(params: Model, cfg: ArchConfig, tokens, cache: dict):
     """One decode step. tokens: (B, 1) int. Returns (logits (B, V),
     cache)."""
-    _require_ported(cfg)
     x = _embed_inputs(params, cfg, {"tokens": tokens})  # (B, 1, D)
     cdt = x.dtype
     b = x.shape[0]
     pos = int(cache["pos"])
-    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    positions = x.new_full((1, 1), pos, dtype=torch.int32)
     dh, hq, hkv = cfg.resolved_head_dim, cfg.q_heads_eff, cfg.kv_heads_eff
-    for i, layer in enumerate(params.layers):
+    for i, layer in enumerate(_cast_layers(params.layers, cfg)):
         h = rms_norm(x, layer.ln1)
         parts = []
         if cfg.has_attention:
             ap = layer.attn
-            q = (h @ ap.wq.to(cdt)).reshape(b, 1, hq, dh)
-            k = (h @ ap.wk.to(cdt)).reshape(b, 1, hkv, dh)
-            v = (h @ ap.wv.to(cdt)).reshape(b, 1, hkv, dh)
+            q = _heads(h @ ap.wq.to(cdt), hq, dh)
+            k = _heads(h @ ap.wk.to(cdt), hkv, dh)
+            v = _heads(h @ ap.wv.to(cdt), hkv, dh)
             if cfg.qk_norm:
                 q = rms_norm(q, ap.q_norm)
                 k = rms_norm(k, ap.k_norm)
@@ -713,7 +843,7 @@ def decode_step(params: Model, cfg: ArchConfig, tokens, cache: dict):
             kc, vc = attn_lib.update_cache(cache["k"][i], cache["v"][i], k,
                                            v, pos)
             o = attn_lib.decode_attention(q, kc, vc, pos)
-            parts.append(o.reshape(b, 1, hq * dh) @ ap.wo.to(cdt))
+            parts.append(settle(o.reshape(b, 1, hq * dh) @ ap.wo.to(cdt)))
         if cfg.has_ssm:
             parts.append(_ssm_decode(h, layer.ssm, cfg,
                                      cache["ssm_state"][i],

@@ -39,8 +39,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.models.layers import silu
+from repro_torch.models.layers import (arange_like, keep_shards, local,
+                                       silu, wrap_local)
 
 
 def capacity(s: int, top_k: int, num_real: int, capacity_factor: float
@@ -59,10 +62,11 @@ def route(x: torch.Tensor, router: torch.Tensor, *, num_experts: int,
     (B, S, E) f32, gates (B, S, k) f32, eidx (B, S, k) int64)."""
     real = num_real_experts or num_experts
     logits = x.float() @ router.float()
-    if real < num_experts:
-        logits[..., real:] = -1e30
-    probs = torch.zeros_like(logits)
-    probs[..., :real] = torch.softmax(logits[..., :real], dim=-1)
+    probs = torch.softmax(logits[..., :real], dim=-1)
+    if real < num_experts:  # out of place: a DTensor takes no slice writes
+        logits = torch.where(arange_like(num_experts, logits) < real,
+                             logits, -1e30)
+        probs = F.pad(probs, (0, num_experts - real))
     gates, eidx = torch.sort(probs[..., :real], dim=-1, descending=True,
                              stable=True)
     gates, eidx = gates[..., :top_k], eidx[..., :top_k]
@@ -120,6 +124,57 @@ def _group_combine(out_rows: torch.Tensor, row: torch.Tensor,
     return out
 
 
+class _Groups:
+    """A sharded program's dispatch and combine. Each batch row is a
+    dispatch group of its own, so the groups are laid out whole on each
+    rank (``x``'s batch shards, replicated over every other axis: what the
+    batch axes give a DTensor activation) and dispatched and combined
+    rank-locally, on each rank's rows, by the plain functions. The buffer
+    is (E, B, C + 1, D) sharded on B as x is on its batch; the expert
+    products on it take DTensor's rules (expert-sharded weights shard it
+    on E); the combine gathers every expert's rows of the rank's groups
+    back (``redistribute``) first. In-place writes into a fresh buffer are
+    rank-local here: a DTensor does not take them."""
+
+    def __init__(self, x: DTensor):
+        self.mesh = x.device_mesh
+        self.grp = keep_shards(x, (0,))
+
+    def _on(self, dim: int) -> list:  # the groups' shards on tensor dim
+        return [Shard(dim) if isinstance(p, Shard) else p for p in self.grp]
+
+    def _local(self, t: DTensor, dim: int = 0) -> torch.Tensor:
+        return local(t, self._on(dim))
+
+    def _wrap(self, t: torch.Tensor, dim: int, shape) -> DTensor:
+        return wrap_local(t, self.mesh, self._on(dim), shape)
+
+    def dispatch(self, x, eidx, num_experts: int, cap: int):
+        buf, row = _group_dispatch(self._local(x), self._local(eidx),
+                                   num_experts, cap)
+        b = x.shape[0]
+        return (self._wrap(buf, 1, (num_experts, b, *buf.shape[2:])),
+                self._wrap(row, 0, (b, *row.shape[1:])))
+
+    def combine(self, ob, row, gates, eidx, cap: int):
+        e, _, d = ob.shape
+        rows = self._local(ob.view(e, row.shape[0], cap + 1, d), 1)
+        y = _group_combine(rows.reshape(-1, d), self._local(row),
+                           self._local(gates), self._local(eidx), cap)
+        return self._wrap(y, 0, (row.shape[0], *y.shape[1:]))
+
+    def load(self, eidx, num_experts: int) -> DTensor:
+        """The routed-token count per expert: each rank's groups counted
+        locally, summed over the batch axes (an all-reduce)."""
+        e = self._local(eidx).reshape(-1)
+        part = torch.zeros(num_experts, dtype=torch.float32,
+                           device=e.device)
+        part.scatter_add_(0, e, torch.ones(e.numel(), device=e.device))
+        want = [Partial() if isinstance(p, Shard) else p for p in self.grp]
+        return wrap_local(part, self.mesh, want, (num_experts,)).redistribute(
+            self.mesh, [Replicate()] * len(want))
+
+
 def moe_ffn(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
             capacity_factor: float = 1.25, norm_topk: bool = True,
             num_real_experts: int | None = None):
@@ -134,12 +189,23 @@ def moe_ffn(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
         x, params["router"], num_experts=num_experts, top_k=top_k,
         norm_topk=norm_topk, num_real_experts=real)
     cap = capacity(s, top_k, real, capacity_factor)
-    buf, row = _group_dispatch(x, eidx, real, cap)
+    groups = _Groups(x) if isinstance(x, DTensor) else None
+    if groups is None:
+        buf, row = _group_dispatch(x, eidx, real, cap)
+    else:
+        buf, row = groups.dispatch(x, eidx, real, cap)
     rows = buf.view(real, -1, d)  # (E, B * (C + 1), D)
-    h = torch.bmm(rows, params["w_gate"][:real])
-    u = torch.bmm(rows, params["w_up"][:real])
-    ob = torch.bmm(silu(h) * u, params["w_down"][:real])
-    y = _group_combine(ob.view(-1, d), row, gates.to(x.dtype), eidx, cap)
+
+    def experts(w):  # padded experts' weights left out (none if unpadded)
+        return w if real == num_experts else w[:real]
+    h = torch.bmm(rows, experts(params["w_gate"]))
+    u = torch.bmm(rows, experts(params["w_up"]))
+    ob = torch.bmm(silu(h) * u, experts(params["w_down"]))
+    if groups is None:
+        y = _group_combine(ob.view(-1, d), row, gates.to(x.dtype), eidx,
+                           cap)
+    else:
+        y = groups.combine(ob, row, gates.to(x.dtype), eidx, cap)
 
     if "shared_gate" in params:
         hs = silu(x @ params["shared_gate"]) * (x @ params["shared_up"])
@@ -147,9 +213,13 @@ def moe_ffn(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
 
     # aux losses in f32 on router stats
     me = probs.mean(dim=(0, 1))  # mean prob per expert
-    load1 = torch.zeros(num_experts, dtype=torch.float32, device=x.device)
-    load1.scatter_add_(0, eidx.reshape(-1),
-                       torch.ones(eidx.numel(), device=x.device))
+    if groups is None:
+        load1 = torch.zeros(num_experts, dtype=torch.float32,
+                            device=x.device)
+        load1.scatter_add_(0, eidx.reshape(-1),
+                           torch.ones(eidx.numel(), device=x.device))
+    else:
+        load1 = groups.load(eidx, num_experts)
     ce = load1 / torch.clamp_min(load1.sum(), 1.0)  # share of assignments
     lb_loss = num_experts * torch.sum(me * ce)
     z_loss = torch.mean(torch.logsumexp(logits[..., :real], dim=-1) ** 2)

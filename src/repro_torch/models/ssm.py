@@ -13,12 +13,32 @@ casts do. ``use_kernel=True`` routes the intra-chunk term through kernel 5
 read once per chunk for all heads); without it the term is the reference's
 einsum. No reference model calls the Pallas kernel: this route is the
 port's own.
+
+DTensor inputs (a sharded program) run rank-locally: the scan is
+independent per batch row and per head, so each rank runs the plain
+function on its (batch, head) shard (b and c whole on each rank's rows).
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ssd_scan as kernel5
+from repro_torch.models.layers import keep_shards, local, wrap_local
+
+
+def _head_layouts(x: DTensor, head_dim: int):
+    """x's batch shards and its head shards (on ``head_dim``), and the
+    layouts they give a (B, ...) tensor without heads, an (H,) vector, a
+    (B, S, H) one and a (B, H, ...) one."""
+    px = keep_shards(x, (0, head_dim))
+    batch = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+             for p in px]
+    heads = [Shard(0) if isinstance(p, Shard) and p.dim == head_dim
+             else Replicate() for p in px]
+    bsh = [Shard(2) if h != Replicate() else b for b, h in zip(batch, heads)]
+    bh = [Shard(1) if h != Replicate() else b for b, h in zip(batch, heads)]
+    return px, batch, heads, bsh, bh
 
 
 def ssd_chunked(x, a_log, b, c, dt, chunk: int = 128,
@@ -29,6 +49,19 @@ def ssd_chunked(x, a_log, b, c, dt, chunk: int = 128,
         state_t = exp(dt_t * A) * state_{t-1} + (x_t * dt_t) (x) b_t
         y_t     = <state_t, c_t>
     return_state=True also returns the final state (B,H,P,N), f32."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        px, batch, heads, bsh, bh = _head_layouts(x, 2)
+        out = ssd_chunked(local(x, px), local(a_log, heads, px),
+                          local(b, batch, px), local(c, batch, px),
+                          local(dt, bsh, px), chunk, return_state,
+                          use_kernel)
+        if not return_state:
+            return wrap_local(out, mesh, px, x.shape)
+        y, state = out
+        shp = (x.shape[0], x.shape[2], x.shape[3], b.shape[-1])
+        return (wrap_local(y, mesh, px, x.shape),
+                wrap_local(state, mesh, bh, shp))
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     q = min(chunk, s)
@@ -87,6 +120,14 @@ def ssd_chunked(x, a_log, b, c, dt, chunk: int = 128,
 def ssd_decode_step(state, x_t, a_log, b_t, c_t, dt_t):
     """One-token recurrence. state: (B,H,P,N) f32; x_t: (B,H,P); b_t/c_t:
     (B,N); dt_t: (B,H). Returns (new_state, y_t (B,H,P) in x_t's dtype)."""
+    if isinstance(x_t, DTensor):
+        mesh = x_t.device_mesh
+        px, batch, heads, _, bh = _head_layouts(x_t, 1)
+        st, y = ssd_decode_step(local(state, bh), local(x_t, px),
+                                local(a_log, heads), local(b_t, batch),
+                                local(c_t, batch), local(dt_t, bh))
+        return (wrap_local(st, mesh, bh, state.shape),
+                wrap_local(y, mesh, px, x_t.shape))
     a = -torch.exp(a_log.float())
     decay = torch.exp(dt_t.float() * a[None])  # (B,H)
     upd = torch.einsum("bhp,bn->bhpn", x_t.float() * dt_t[..., None].float(),
@@ -104,8 +145,7 @@ def causal_conv(x, w, cache=None):
     not ``conv1d``, which in f32 on the card runs through cuDNN in TF32."""
     k = w.shape[0]
     if cache is None:
-        pad = torch.zeros(x.shape[0], k - 1, x.shape[2], dtype=x.dtype,
-                          device=x.device)
+        pad = x.new_zeros(x.shape[0], k - 1, x.shape[2])
     else:
         pad = cache.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, C)

@@ -14,10 +14,12 @@ become:
     FUNCTION-PRESERVING: the model computes the same outputs, only the
     shard each expert lives on changes.
 
-The port has one card and no mesh yet (ROADMAP Queue 1 item 10), so its
-trainer runs the rebalancer at one shard, as the reference does on one
-device. The bookkeeping is the reference's numpy, on the port's
-``models.moe.expert_activity`` and ``rebalance_plan``.
+The trainer (``launch/train.py``) runs the rebalancer at its mesh's
+"model" size, the expert-parallel shards, as the reference's does (one
+shard on one device). The bookkeeping is the reference's numpy, on the
+port's ``models.moe.expert_activity`` and ``rebalance_plan``; on a
+sharded state the permutation gathers each expert tensor's rows in the
+new order and lays them out as they were.
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import moe as moe_lib
+from repro_torch.models.layers import replicated_like
 
 EXPERT_TENSORS = ("w_gate", "w_up", "w_down")
 
@@ -52,12 +56,17 @@ def _permuted(name: str, p: torch.Tensor, inv: np.ndarray) -> torch.Tensor:
     parts = name.split(".")
     if len(parts) < 2 or parts[-2] != "moe":
         return p
-    idx = torch.as_tensor(inv, dtype=torch.int64).to(p.device)
+    idx = replicated_like(torch.as_tensor(inv, dtype=torch.int64)
+                          .to(p.device), p)
     if parts[-1] in EXPERT_TENSORS:
-        return p.index_select(0, idx)
-    if parts[-1] == "router":
-        return p.index_select(1, idx)
-    return p
+        q = p.index_select(0, idx)
+    elif parts[-1] == "router":
+        q = p.index_select(1, idx)
+    else:
+        return p
+    if isinstance(p, DTensor):  # back to p's own layout
+        q = q.redistribute(p.device_mesh, p.placements)
+    return q
 
 
 @dataclasses.dataclass

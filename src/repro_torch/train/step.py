@@ -14,12 +14,24 @@ activations are bounded by one microbatch.
 The reference never differentiates through a Pallas kernel (its
 ``use_pallas`` defaults to False and its launcher never sets it), and the
 port has no backward kernel: ``use_kernel=True`` raises.
+
+A state laid out on a mesh (``launch.sharding.distribute_state``: DTensor
+parameters and moments) with a batch laid out by ``P("data", None)`` runs
+the same step as a sharded program. Its microbatches are the reference's:
+microbatch j is the global batch's j-th row block, laid out as the batch
+(each rank gathers the batch's rows, a few integers each, and keeps its
+shard of the block), so an MoE's load-balancing loss, which is not linear
+in a microbatch's rows, sees the same rows as the reference's and the
+unsharded step's.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import model as model_lib
+from repro_torch.models.attention import local_span
+from repro_torch.models.layers import wrap_local
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      named)
@@ -74,6 +86,21 @@ def _grads(model, params: dict, cfg: ArchConfig, batch):
             {k: g.to(torch.float32) for k, g in zip(params, gs)})
 
 
+def _micro(v: torch.Tensor, j: int, n: int) -> torch.Tensor:
+    """The j-th of n row blocks of a batch leaf; of a DTensor, the j-th
+    block of the global rows, laid out as the leaf."""
+    rows = v.shape[0] // n
+    if not isinstance(v, DTensor):
+        return v[j * rows:(j + 1) * rows]
+    mesh, pl = v.device_mesh, v.placements
+    block = v.full_tensor()[j * rows:(j + 1) * rows]
+    shape = block.shape
+    for d, size in enumerate(shape):
+        off, length = local_span(size, mesh, pl, d)
+        block = block.narrow(d, off, length)
+    return wrap_local(block.contiguous(), mesh, pl, shape)
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                     num_microbatches: int = 1, use_kernel: bool = False):
     """``step(state, batch) -> (state, metrics)``. ``batch``: ``tokens``
@@ -92,10 +119,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
         model = state["params"]
         params = named(model)
         if n > 1:
-            rows = next(iter(batch.values())).shape[0] // n
             gsum, lsum, auxs = None, None, []
             for j in range(n):
-                mb = {k: v[j * rows:(j + 1) * rows] for k, v in batch.items()}
+                mb = {k: _micro(v, j, n) for k, v in batch.items()}
                 loss, aux, g = _grads(model, params, cfg, mb)
                 if gsum is None:  # the reference's scan carry starts at 0
                     gsum = {k: torch.zeros_like(x) for k, x in g.items()}

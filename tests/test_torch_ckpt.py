@@ -106,10 +106,34 @@ def test_ckpt_stale_tmp_sweep_crash_recovery(tmp_path):
 
 
 def test_restore_onto_a_mesh_waits_for_the_mesh(tmp_path):
-    mgr = CheckpointManager(str(tmp_path), async_write=False)
-    mgr.save(1, {"x": np.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mgr.restore(shardings={"x": None})
+    """``restore(shardings=..., mesh=...)`` lays each leaf out on the mesh
+    (here a gloo world of one, a (1, 1) mesh): DTensors with the given
+    placements holding the saved values, nested containers kept."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_host_mesh
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), async_write=False)
+    tree = {"x": np.arange(12, dtype=np.float32).reshape(3, 4),
+            "n": {"y": np.arange(5, dtype=np.int32)}}
+    mgr.save(1, tree)
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        mesh = make_host_mesh(model=1, device_type="cpu")
+        shard = (Replicate(), Shard(1))
+        got, meta = mgr.restore(
+            shardings={"x": shard, "n": {"y": (Shard(0), Replicate())}},
+            mesh=mesh)
+        assert meta["step"] == 1 and isinstance(got["x"], DTensor)
+        assert tuple(got["x"].placements) == shard
+        assert torch.equal(got["x"].full_tensor(),
+                           torch.from_numpy(tree["x"]))
+        assert torch.equal(got["n"]["y"].full_tensor(),
+                           torch.from_numpy(tree["n"]["y"]))
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("writer", ["reference", "port"])

@@ -624,18 +624,33 @@ def test_swiglu_matches_reference_bitwise():
 
 
 def test_cast_weights_once_raises():
-    """``cast_weights_once`` is refused, not accepted and ignored: every
-    entry point that takes the config raises on it."""
-    cfg = dataclasses.replace(TC.reduced(TC.get("llama3p2_1b")),
-                              cast_weights_once=True)
-    tok = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
-    for call in (lambda: TM.init_params(cfg, torch.Generator()),
-                 lambda: TM.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: TM.forward(None, cfg, tok),
-                 lambda: TM.prefill(None, cfg, tok, {}),
-                 lambda: TM.decode_step(None, cfg, tok["tokens"], {})):
-        with pytest.raises(NotImplementedError, match="cast_weights_once"):
-            call()
+    """Named for when ``cast_weights_once`` raised; it checks that the
+    lever now runs: every entry point that takes the config runs with it,
+    and the logits of the forward, the
+    prefill and each decode step are the same bits with it on and off (the
+    same casts of the same values, once per call instead of at each use),
+    for a dense, an SSM, a MoE and the audio family in bf16."""
+    for name in ("llama3p2_1b", "hymba_1p5b", "granite_moe_3b_a800m",
+                 "whisper_base"):
+        off = _port_cfg(_cfg(name))
+        on = dataclasses.replace(off, cast_weights_once=True)
+        params = TM.init_params(on, torch.Generator().manual_seed(0))
+        tok, extras = _tokens(off, s=16), _extras(off)
+        batch = _tbatch(tok, extras)
+        runs = []
+        for cfg in (off, on):
+            logits = [TM.forward(params, cfg, batch)[0]]
+            cache = TM.init_cache(cfg, 2, 16 + cfg.num_patches + 2,
+                                  enc_seq=ENC_S, device="cpu")
+            lg, cache = TM.prefill(params, cfg, batch, cache)
+            logits.append(lg)
+            for _ in range(2):
+                nxt = lg.argmax(-1).to(torch.int32)[:, None]
+                lg, cache = TM.decode_step(params, cfg, nxt, cache)
+                logits.append(lg)
+            runs.append(logits)
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), name
 
 
 def test_configs_are_the_reference_configs():
